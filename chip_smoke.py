@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging HEPi rollout on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging HEPi paths on one GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
      TF32 off for matmuls and convolutions.
-  2. build: compile (or reuse) csrc/cloth_solve.cu into geometry_rl_torch/_build/.
-  3. kernel vs plain version on the card, on the real ClothEnv topology:
-     B = 100 with self-collision off (the main path's shapes) and B = 4 with
-     it on; max |diff| <= 2e-4, and both times per call (CUDA events).
-  4. the slice at full width (cloth_hanging_multi_hepi_trpl: 100 envs,
+  2. build: compile (or reuse) csrc/cloth_solve.cu and csrc/cloth_solve_env.cu
+     into geometry_rl_torch/_build/, both nvcc runs at once.
+  3. kernels vs plain version on the card, on the real ClothEnv topology:
+     each kernel at B = 100 with self-collision off (the main paths' shapes)
+     and B = 4 with it on, max |diff| <= 2e-4; K1's port against K2's on the
+     same operands; ms per call of both kernels and the plain version at
+     B = 100 and B = 1000 (CUDA events).
+  4. the rollout at full width (cloth_hanging_multi_hepi_trpl: 100 envs,
      latent 64, 16 orientations, the config's dtype): init(seed 0), one
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
-     the card; the kernel ran exactly 2 x (10 + 100 + 10 + 100) = 440 times.
-  5. the slice on a small input (4 envs, f32): 3 deterministic steps on the
+     the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times.
+  5. the rollout on a small input (4 envs, f32): 3 deterministic steps on the
      card against the same steps on the CPU, where the solve is the plain
      version.
+  6. training at full width through the CLI (`train.cli.main`, --device cuda,
+     env.kwargs.use_pallas_solver=true, 2 iterations of 100 envs x 100 steps,
+     5 epochs x 50 minibatches of 200): metrics.jsonl has 2 finite rows with
+     the reference's keys, the params moved, K1's port ran exactly
+     2 x (10 + 2 x 100) = 420 times and K2's never, and the last checkpoint
+     restores bit-exactly into a fresh trainer. Seconds per iteration, collect
+     and update apart.
+  7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json.
+  8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
+     envs, f32, the same batch, params and permutation: first-minibatch
+     gradients within 1e-4 of their global norm, params within 1e-5.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -28,8 +42,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -39,6 +55,22 @@ SOLVE_TOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate
 # about 3x per step; the untrained policy's mean actions reach ~1e2, and the
 # action-rate reward term squares them
 SLICE_TOL = 1e-4
+# card vs CPU over one update phase: the backward's scatter-adds use atomics
+# on the card and sum in another order than the CPU, so gradients agree to
+# rounding relative to their global norm; Adam moves each param by at most
+# ~lr = 3e-4 per step, normalised by the gradient's scale
+GRAD_TOL = 1e-4
+PARAM_TOL = 1e-5
+LIBRARIES = ("cloth_solve", "cloth_solve_env")
+# the reference's per-iteration metric keys (TRPL loss and constraint metrics,
+# update, collect and CLI keys)
+REFERENCE_KEYS = (
+    "loss_objective", "loss_trust_region", "loss_entropy", "loss_critic", "entropy", "ESS",
+    "value_clip_fraction", "policy_std", "policy_std_min", "kl", "constraint", "mean_constraint",
+    "cov_constraint", "entropy_diff", "kl_max", "constraint_max", "mean_constraint_max",
+    "cov_constraint_max", "entropy_max", "entropy_diff_max", "grad_norm_actor", "grad_norm_actor_max",
+    "train/explained_variance", "train/reward", "train/episodes", "train/iteration_time", "train/frames",
+)
 
 
 def fail(msg: str) -> None:
@@ -98,6 +130,146 @@ def solve_inputs(env, generator):
             env.groups, env.self_pair_mask_full, env.self_active_full)
 
 
+def train_phase(card: str):
+    """Phase 6: two full-width training iterations through the CLI with K1's
+    port as the solve. Returns the run dir and K1's launch count."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.train import cli
+    from geometry_rl_torch.train.checkpoint import STATE_FILE, latest_step, restore_checkpoint
+
+    t_phase = time.perf_counter()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    overrides = ["env.kwargs.use_pallas_solver=true", "collector.total_frames=20000",
+                 "logger.checkpoint.save_interval=1", f"logger.log_dir={log_dir}"]
+    cfg = load_config("cloth_hanging_multi_hepi_trpl", cli.parse_overrides(overrides))
+    B, T = cfg["env"]["num_envs"], cfg["collector"]["frames_per_batch"] // cfg["env"]["num_envs"]
+    iterations = cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]
+    expected = 2 * (cfg["env"]["kwargs"].get("warmup_steps", 10) + iterations * T)  # decimation 2
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    torch.cuda.synchronize()
+    run_dir = cli.main(["--config", "cloth_hanging_multi_hepi_trpl", "--device", "cuda", "--override", *overrides])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"[train] cloth_hanging HEPi, use_pallas_solver=true: {iterations} iterations of {B} envs x {T} steps; "
+          f"cloth_solve_env launches {launches['cloth_solve_env']} (expected {expected}), "
+          f"cloth_solve launches {launches['cloth_solve']} (expected 0)")
+    if launches != {"cloth_solve": 0, "cloth_solve_env": expected}:
+        fail(f"the training path launched {launches}, expected cloth_solve_env {expected} and cloth_solve 0")
+
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    if len(rows) != iterations:
+        fail(f"metrics.jsonl has {len(rows)} rows, expected {iterations}")
+    for row in rows:
+        missing = set(REFERENCE_KEYS) - set(row)
+        if missing:
+            fail(f"metrics.jsonl row {row['step']} lacks {sorted(missing)}")
+        bad = [k for k, v in row.items() if not (isinstance(v, (int, float)) and abs(v) < float("inf"))]
+        if bad:
+            fail(f"metrics.jsonl row {row['step']} has non-finite {bad}")
+        print(f"[train] iteration {row['step']}: {row['train/iteration_time']:.3f} s = collect "
+              f"{row['train/collect_time']:.3f} s + update {row['train/update_time']:.3f} s on {card}; "
+              f"reward {row['train/reward']:.3f}, kl {row['kl']:.5f}, ESS {row['ESS']:.4f}, "
+              f"explained variance {row['train/explained_variance']:.4f}")
+
+    # a fresh trainer: its own init params, then the last checkpoint bit-exactly
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    step = latest_step(ckpt_dir)
+    fresh = trainer_from_config(cfg, device="cuda")
+    template = fresh.init(torch.Generator(device="cuda").manual_seed(cfg["seed"]))
+    init_params = {k: v.clone() for k, v in fresh.policy.state_dict().items()}
+    state = restore_checkpoint(ckpt_dir, fresh, template, step)
+    saved = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE), map_location="cpu", weights_only=True)
+    moved = max((saved["policy"][k] - v.cpu()).abs().max().item() for k, v in init_params.items())
+    if not moved > 1e-4:
+        fail(f"the policy params did not move in training (max change {moved})")
+    for part, module in (("policy", fresh.policy), ("critic", fresh.critic)):
+        for k, v in module.state_dict().items():
+            if not torch.equal(v.cpu(), saved[part][k]):
+                fail(f"restored {part}.{k} differs from the checkpoint")
+    for field in ("actor_opt", "critic_opt"):
+        got, want = getattr(state, field).state_dict(), saved[field]
+        for i, entry in want["state"].items():
+            if not all(torch.equal(got["state"][i][k].cpu(), v) for k, v in entry.items()):
+                fail(f"restored {field} state {i} differs from the checkpoint")
+    from geometry_rl_torch.train.checkpoint import _plain
+
+    def same(a, b):
+        if torch.is_tensor(b):
+            return torch.equal(a.cpu(), b)
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(b, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in b)
+        return a == b
+
+    for field, value in saved["state"].items():
+        if not same(_plain(getattr(state, field)), value):
+            fail(f"restored TrainState.{field} differs from the checkpoint")
+    print(f"[train] checkpoint {step} restored bit-exactly into a fresh trainer (params, Adam states, normaliser, "
+          f"env state, generators, num_updates {state.num_updates}); policy params moved up to {moved:.3e} "
+          f"from init; phase took {time.perf_counter() - t_phase:.2f} s")
+    return run_dir, launches["cloth_solve_env"]
+
+
+def update_parity_phase() -> None:
+    """Phase 8: the same batch, params and permutation through one `_update`
+    on the card and on the CPU (4 envs, f32, full-width model)."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+
+    t_phase = time.perf_counter()
+    small = load_config("cloth_hanging_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}, "collector": {"frames_per_batch": 40},
+        "algorithm": {"dtype": "float32", "objective": {"ppo_epochs": 1, "mini_batch_size": 20}},
+    })
+    gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
+    g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
+    g_state, batch, _ = gpu._collect(g_state)
+    c_state = cpu.init(torch.Generator().manual_seed(0))
+    cpu.policy.load_state_dict(gpu.policy.state_dict())
+    cpu.critic.load_state_dict(gpu.critic.state_dict())
+    c_state = c_state._replace(norm=moved(g_state.norm, "cpu"), obs=moved(g_state.obs, "cpu"),
+                               initial_entropy=g_state.initial_entropy.cpu())
+    c_batch = moved(batch, "cpu")
+    n = batch.action.shape[0] * batch.action.shape[1]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:40].reshape(2, 20)
+    first_grads = {}
+    for name, tr in (("cuda", gpu), ("cpu", cpu)):
+        tr._permutation = lambda generator, n, dev=tr.device: perm.to(dev)
+        step = tr._minibatch_step
+
+        def recording(state, mb, num_updates, tr=tr, step=step, name=name):
+            metrics = step(state, mb, num_updates)
+            if name not in first_grads:
+                first_grads[name] = torch.cat([p.grad.reshape(-1).cpu() for p in tr.policy.parameters()]
+                                              + [p.grad.reshape(-1).cpu() for p in tr.critic.parameters()])
+            return metrics
+
+        tr._minibatch_step = recording
+    if gpu.num_minibatches != 2 or gpu.mini_batch_size != 20:
+        fail(f"the update phase has {gpu.num_minibatches} minibatches of {gpu.mini_batch_size}, expected 2 of 20")
+    g_state, g_metrics = gpu._update(g_state, batch)
+    c_state, c_metrics = cpu._update(c_state, c_batch)
+    torch.cuda.synchronize()
+    g, c = first_grads["cuda"], first_grads["cpu"]
+    grad_err = (g - c).abs().max().item() / c.norm().item()
+    param_err = max((v.cpu() - cpu.policy.state_dict()[k]).abs().max().item() for k, v in gpu.policy.state_dict().items())
+    param_err = max(param_err, max((v.cpu() - cpu.critic.state_dict()[k]).abs().max().item()
+                                   for k, v in gpu.critic.state_dict().items()))
+    print(f"[update] one update phase (1 epoch x 2 minibatches of 20, 4 envs, f32), card vs CPU: first-minibatch "
+          f"gradients max |diff| / global norm = {grad_err:.3e} (tol {GRAD_TOL}), params after max |diff| = "
+          f"{param_err:.3e} (tol {PARAM_TOL}); loss_critic {g_metrics['loss_critic'].item():.5f} vs "
+          f"{c_metrics['loss_critic'].item():.5f}; phase took {time.perf_counter() - t_phase:.2f} s")
+    if not grad_err <= GRAD_TOL:
+        fail(f"the card's gradients disagree with the CPU's: {grad_err}")
+    if not param_err <= PARAM_TOL:
+        fail(f"the card's params after the update disagree with the CPU's: {param_err}")
+
+
 def main() -> int:
     import torch
 
@@ -121,35 +293,51 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from geometry_rl_torch.config import load_config, trainer_from_config
     from geometry_rl_torch.cuda_build import BUILD_SECONDS, load_library
     from geometry_rl_torch.envs import make_env
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES, cloth_position_solve_cuda, cloth_position_solve_ref
+    from geometry_rl_torch.sim.cloth_solve import (
+        LAUNCHES,
+        cloth_position_solve_cuda,
+        cloth_position_solve_env_cuda,
+        cloth_position_solve_ref,
+    )
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    load_library("cloth_solve")
-    print(f"[build] cloth_solve: {BUILD_SECONDS['cloth_solve']:.2f} s compiling, {time.perf_counter() - t0:.2f} s to load")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(load_library, LIBRARIES))
+    print(f"[build] " + ", ".join(f"{n}: {BUILD_SECONDS[n]:.2f} s compiling" for n in LIBRARIES)
+          + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    # ---- 3. kernel vs plain version ----------------------------------------
+    # ---- 3. kernels vs plain version ---------------------------------------
     t_phase = time.perf_counter()
+    kernels = {"cloth_solve": cloth_position_solve_cuda, "cloth_solve_env": cloth_position_solve_env_cuda}
     kernel_stats = {}
-    for B, self_collision in ((100, False), (4, True)):
+    for B, self_collision in ((100, False), (4, True), (1000, False)):
         env = make_env("cloth_hanging", num_envs=B, warmup_steps=0, self_collision=self_collision, device="cuda")
         args = solve_inputs(env, torch.Generator(device="cuda").manual_seed(1))
-        out_k = cloth_position_solve_cuda(*args)
-        torch.cuda.synchronize()
         out_r = cloth_position_solve_ref(*args)
-        err = (out_k - out_r).abs().max().item()
         shift = (out_r - args[1]).abs().max().item()
-        ms = timed_ms(lambda: cloth_position_solve_cuda(*args), 200)
         plain_ms = timed_ms(lambda: cloth_position_solve_ref(*args), 10)
-        print(f"[kernel] cloth_solve B={B} self_collision={self_collision}: max|kernel - plain| = {err:.3e} "
-              f"(tol {SOLVE_TOL}; the solve moved x by up to {shift:.3e}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms per call on {card}")
-        if not err <= SOLVE_TOL:
-            fail(f"kernel disagrees with the plain version at B={B}: {err}")
-        kernel_stats[(B, self_collision)] = (err, ms, plain_ms)
+        outs = {}
+        for name, solve in kernels.items():
+            outs[name] = solve(*args)
+            torch.cuda.synchronize()
+            err = (outs[name] - out_r).abs().max().item()
+            ms = timed_ms(lambda: solve(*args), 200)
+            print(f"[kernel] {name} B={B} self_collision={self_collision}: max|kernel - plain| = {err:.3e} "
+                  f"(tol {SOLVE_TOL}; the solve moved x by up to {shift:.3e}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms per call on {card}")
+            if not err <= SOLVE_TOL:
+                fail(f"{name} disagrees with the plain version at B={B}: {err}")
+            kernel_stats[(name, B, self_collision)] = (err, ms, plain_ms)
+        k1_k2 = (outs["cloth_solve_env"] - outs["cloth_solve"]).abs().max().item()
+        print(f"[kernel] K1's port vs K2's at B={B} self_collision={self_collision}: max |diff| = {k1_k2:.3e} (tol {SOLVE_TOL})")
+        if not k1_k2 <= SOLVE_TOL:
+            fail(f"cloth_solve_env disagrees with cloth_solve at B={B}: {k1_k2}")
     print(f"[kernel] phase took {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. the slice at full width ---------------------------------------
@@ -159,7 +347,7 @@ def main() -> int:
     print(f"[slice] cloth_hanging HEPi: {B} envs, latent {cfg['algorithm']['latent_dim']}, "
           f"{cfg['algorithm']['num_ori']} orientations, dtype {cfg['algorithm']['dtype']}, "
           f"{trainer.cfg.steps_per_batch} steps per collect")
-    LAUNCHES["cloth_solve"] = 0
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
@@ -195,8 +383,8 @@ def main() -> int:
     print(f"[slice] success_rate {success['success_rate'].item():.4f}, mean_final_distance "
           f"{success['mean_final_distance'].item():.4f}, episodes in collect {stats['train/episodes'].item():.0f}; "
           f"cloth_solve launches {launches} (expected {expected})")
-    if launches != expected:
-        fail(f"cloth_solve launched {launches} times on the main path, expected {expected}")
+    if launches != expected or LAUNCHES["cloth_solve_env"] != 0:
+        fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
 
     # ---- 5. the slice on a small input against the CPU --------------------
     t_phase = time.perf_counter()
@@ -230,12 +418,31 @@ def main() -> int:
     if not max(worst.values()) <= SLICE_TOL:
         fail(f"the slice on the card disagrees with the CPU: {worst}")
 
-    err, ms, plain_ms = kernel_stats[(100, False)]
-    print(json.dumps({"kernels": [{
-        "name": "cloth_solve", "route": "cuda", "source": "geometry_rl_torch/csrc/cloth_solve.cu",
-        "replaces": "geometry_rl_tpu/sim/pallas_cloth.py:385", "launches": launches,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    # ---- 6. training at full width through the CLI -------------------------
+    run_dir, env_launches = train_phase(card)
+
+    # ---- 7. play on that run -------------------------------------------------
+    t_phase = time.perf_counter()
+    from geometry_rl_torch.train import play
+
+    results = play.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes-steps", "100",
+                         "--success-threshold", "0.1", "--device", "cuda"])
+    for key, entry in results.items():
+        if not (entry["reward"] == entry["reward"] and 0.0 <= entry["success_rate"] <= 1.0):
+            fail(f"play result for checkpoint {key} is not finite: {entry}")
+    print(f"[play] {len(results)} checkpoints, 100 steps each: {results}; phase took {time.perf_counter() - t_phase:.2f} s")
+    shutil.rmtree(os.path.dirname(run_dir))
+
+    # ---- 8. one update phase on the card against the CPU ---------------------
+    update_parity_phase()
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",
+         "replaces": f"geometry_rl_tpu/sim/pallas_cloth.py:{line}", "launches": n_launch,
+         "max_abs_err": kernel_stats[(name, 100, False)][0], "ms": kernel_stats[(name, 100, False)][1],
+         "plain_ms": kernel_stats[(name, 100, False)][2]}
+        for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

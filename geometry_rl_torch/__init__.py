@@ -4,8 +4,8 @@ The JAX package stays the reference; this package mirrors its layout module
 for module (sim/, envs/, graphs/, models/, rl/, train/, utils/) and is held
 against it by the `tests/test_torch_*.py` parity tests.
 
-It imports torch and numpy, never jax. The one shared module is
-`geometry_rl_tpu.config` (YAML loading only), re-exported by `.config`.
+It imports torch and numpy, never jax. The YAML task configs are read as data
+from `geometry_rl_tpu/configs/` by the port's own loader (`.config`).
 
 Every TPU kernel of the ported path is a hand-written CUDA kernel under
 `csrc/`, built at first use into `_build/` (see `cuda_build.py`). Each kernel

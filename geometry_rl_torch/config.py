@@ -4,7 +4,7 @@ The YAML task configs are shared with the JAX package and read as data from
 `geometry_rl_tpu/configs/`; `DEFAULTS`, `load_config` and the merge rules
 mirror `geometry_rl_tpu/config.py` (tests/test_torch_config.py holds the two
 loaders equal on every YAML), so the port imports nothing of the JAX package.
-`trainer_from_config` builds the port's rollout Trainer.
+`trainer_from_config` builds the port's Trainer.
 """
 
 from __future__ import annotations
@@ -179,16 +179,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def trainer_from_config(cfg: Dict, device="cpu"):
-    """Build the rollout Trainer from a loaded config dict. Parameters stay
-    float32; activations run in `algorithm.dtype`."""
+    """Build the Trainer from a loaded config dict. Parameters stay float32;
+    activations run in `algorithm.dtype`."""
     from .train.builders import build_agent
     from .train.ppo import TrainConfig
 
     num_envs = cfg["env"]["num_envs"]
     obj = cfg["algorithm"]["objective"]
     opt = cfg["algorithm"]["optim"]
-    if cfg["algorithm"].get("training_noise", False):
-        raise NotImplementedError("training_noise acts in the update, which is not ported yet")
+    if cfg["algo"] != "trpl":
+        raise NotImplementedError(f"algo {cfg['algo']!r} (its loss) is not ported yet (ROADMAP.md Queue 1 item 10)")
+    if obj.get("papi_steps", False):
+        raise NotImplementedError("PAPI post-update steps are not ported yet (ROADMAP.md Queue 1 item 10)")
     train_cfg = TrainConfig(
         algo=cfg["algo"],
         steps_per_batch=max(1, cfg["collector"]["frames_per_batch"] // num_envs),
@@ -211,6 +213,7 @@ def trainer_from_config(cfg: Dict, device="cpu"):
         clip_grad_norm=obj["clip_grad_norm"],
     )
     policy = cfg["algorithm"]["policy"]
+    proj = cfg["algorithm"]["projection"]
     return build_agent(
         task=cfg["task"],
         model=cfg["model"],
@@ -219,6 +222,17 @@ def trainer_from_config(cfg: Dict, device="cpu"):
         latent_dim=cfg["algorithm"]["latent_dim"],
         num_ori=cfg["algorithm"]["num_ori"],
         dtype=DTYPES[cfg["algorithm"].get("dtype", "float32")],
+        mean_bound=proj["mean_bound"],
+        cov_bound=proj["cov_bound"],
+        trust_region_coeff=proj["trust_region_coeff"],
+        proj_type=proj["proj_type"],
+        entropy_schedule=proj.get("entropy_schedule"),
+        target_entropy=proj.get("target_entropy", 0.0),
+        temperature=proj.get("temperature", 0.5),
+        entropy_eq=proj.get("entropy_eq", False),
+        entropy_first=proj.get("entropy_first", False),
+        training_noise=cfg["algorithm"].get("training_noise", False),
+        training_noise_std=cfg["algorithm"].get("training_noise_std", 1e-2),
         train_cfg=train_cfg,
         env_kwargs=cfg["env"].get("kwargs") or {},
         device=device,

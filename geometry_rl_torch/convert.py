@@ -1,6 +1,6 @@
-"""Carry weights and env state from the JAX package into the port.
+"""Carry weights, env state and rollout batches from the JAX package into the port.
 
-Both functions take numpy arrays (the caller does the `np.asarray` on the JAX
+The functions take numpy arrays (the caller does the `np.asarray` on the JAX
 side), so this module needs neither jax nor flax.
 """
 
@@ -74,3 +74,13 @@ def obs_norm_from_jax(norm, device=None) -> ObsNormState:
     return ObsNormState(
         *(VecNormState(*(torch.as_tensor(np.array(a), dtype=torch.float32, device=device) for a in v)) for v in norm)
     )
+
+
+def batch_from_jax(batch, device=None):
+    """The reference's rollout `Batch` (numpy leaves) -> the port's."""
+    from .train.ppo import Batch
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    return Batch(tobs={k: t(v) for k, v in batch.tobs.items()}, **{f: t(getattr(batch, f)) for f in Batch._fields if f != "tobs"})

@@ -5,8 +5,9 @@ per-env hole (a particle/constraint mask over a static grid, 20 train
 placements round-robin over envs), 4 gripper cubes attached at the corners,
 and a capsule hook. Episode 100 steps, decimation 2.
 
-The position solve runs through `sim/cloth_solve.py`: the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors. The reference's XLA solver
+The position solve runs through `sim/cloth_solve.py`: for CUDA tensors the
+kernel of the solver mode (K2's port for "auto"/"tiled", K1's for True), for
+CPU tensors the plain version. The reference's XLA solver
 path (`use_pallas_solver=False`, `sim/xpbd.step_physics`) is not ported yet.
 """
 
@@ -104,8 +105,9 @@ class ClothTaskCfg:
     num_envs: int = 40
     num_holes: int = 20
     hole_split: str = "train"  # train | test
-    # "auto", "tiled" and True solve through the fused kernel; False (the
-    # reference's XLA solver) is not ported yet
+    # "auto" and "tiled" solve through K2's port (csrc/cloth_solve.cu), True
+    # through K1's (csrc/cloth_solve_env.cu); False (the reference's XLA
+    # solver) is not ported yet
     use_pallas_solver: object = "auto"
     episode_length: int = 100
     decimation: int = 2
@@ -191,7 +193,9 @@ class ClothEnv:
             )
         if mode not in ("auto", "tiled", True):
             raise ValueError(f"use_pallas_solver must be 'auto', 'tiled', True or False, got {mode!r}")
-        self.solver_mode = "tiled"
+        # the reference's modes: "tiled" (and "auto" on the accelerator) run
+        # K2's port, True runs K1's
+        self.solver_mode = True if mode is True else "tiled"
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -431,6 +435,7 @@ class ClothEnv:
             x = cloth_position_solve(
                 self.solve_spec, x, prev_x, self.inv_all, hanger_pos, self.att_body_w,
                 self.corner_indices, self.groups, self.self_pair_mask_full, self.self_active_full,
+                kernel="tiled" if self.solver_mode == "tiled" else "per_env",
             )
             new_p, new_b = x[:, :P], x[:, P:]
             scene = SceneState(

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..envs.base import ObsSpec
-from .rigid import split_group
+from .rigid import apply_training_noise, split_group
 from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet
 
 ONE_HOT = {
@@ -45,6 +45,8 @@ class ClothGraphBuilder:
         dist_as_pos: bool,
         hole_mask: torch.Tensor,  # [B_env, P] 1 = removed particle
         output_mask_key: str = "grippers",
+        training_noise: bool = False,
+        training_noise_std: float = 1e-2,
     ):
         self.obs_spec = obs_spec
         self.num_grippers, self.num_particles, self.num_boundary = num_grippers, num_particles, num_boundary
@@ -52,6 +54,7 @@ class ClothGraphBuilder:
         self.dist_as_pos = dist_as_pos
         self.output_mask_key = output_mask_key
         self.hole_mask = hole_mask
+        self.training_noise, self.training_noise_std = training_noise, training_noise_std
         dev = hole_mask.device
         K, G = num_boundary, num_grippers
         self._edges = {
@@ -62,7 +65,8 @@ class ClothGraphBuilder:
         self._one_hot = {nt: torch.tensor(v, device=dev) for nt, v in ONE_HOT.items()}
 
     @staticmethod
-    def from_env(env, dist_as_pos: bool = False, full_graph_obs: bool = False) -> "ClothGraphBuilder":
+    def from_env(env, dist_as_pos: bool = False, full_graph_obs: bool = False, training_noise: bool = False,
+                 training_noise_std: float = 1e-2) -> "ClothGraphBuilder":
         from ..envs.cloth import K_BOUNDARY, N_PARTICLES
 
         return ClothGraphBuilder(
@@ -73,9 +77,19 @@ class ClothGraphBuilder:
             full_graph_obs=full_graph_obs,
             dist_as_pos=dist_as_pos,
             hole_mask=env.hole_mask,
+            training_noise=training_noise,
+            training_noise_std=training_noise_std,
         )
 
-    def build(self, tobs: Dict[str, torch.Tensor], env_ids: Optional[torch.Tensor] = None) -> Tuple[HeteroGraph, GraphFeatures]:
+    def build(
+        self,
+        tobs: Dict[str, torch.Tensor],
+        env_ids: Optional[torch.Tensor] = None,
+        noise_generator: Optional[torch.Generator] = None,
+    ) -> Tuple[HeteroGraph, GraphFeatures]:
+        """The graph and features of `tobs`; `env_ids` picks each sample's
+        env (hole mask) in a shuffled minibatch, and `noise_generator` draws
+        the training noise when the builder has it on."""
         spec = self.obs_spec
         B = tobs["position_vectors"].shape[0]
         G, P, K = self.num_grippers, self.num_particles, self.num_boundary
@@ -114,4 +128,6 @@ class ClothGraphBuilder:
                 mask=torch.ones((B, src.shape[0]), dtype=grip_npos.dtype, device=grip_npos.device),
             )
         graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key)
+        if self.training_noise and noise_generator is not None:
+            vectors = apply_training_noise(vectors, noise_generator, self.training_noise_std)
         return graph, GraphFeatures(scalars=one_hot, vectors=vectors)

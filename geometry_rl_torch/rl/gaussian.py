@@ -1,10 +1,10 @@
-"""Diagonal-Gaussian distributions (port of the rollout part of
-`geometry_rl_tpu/rl/gaussian.py`): `(mean [..., K], std [..., K])` vectors."""
+"""Diagonal-Gaussian distributions (port of `geometry_rl_tpu/rl/gaussian.py`
+without the Frobenius and W2 parts): `(mean [..., K], std [..., K])` vectors."""
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,3 +42,18 @@ def entropy(p: DiagGaussian) -> torch.Tensor:
 def sample(generator: torch.Generator, p: DiagGaussian, shape: tuple = ()) -> torch.Tensor:
     eps = torch.randn(tuple(shape) + p.mean.shape, generator=generator, dtype=p.mean.dtype, device=p.mean.device)
     return p.mean + eps * p.std
+
+
+def kl_parts(p: DiagGaussian, q: DiagGaussian) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean part, cov part) of KL(p || q): mean part = 0.5 * maha(mu_p, mu_q,
+    sigma_q); cov part = 0.5 * (trace + logdet_q - logdet_p - k)."""
+    k = p.mean.shape[-1]
+    maha_part = 0.5 * maha(p.mean, q.mean, q.std)
+    ratio = (p.std / q.std) ** 2
+    cov_part = 0.5 * (ratio.sum(-1) - k + log_determinant(q.std) - log_determinant(p.std))
+    return maha_part, cov_part
+
+
+def kl(p: DiagGaussian, q: DiagGaussian) -> torch.Tensor:
+    m, c = kl_parts(p, q)
+    return m + c

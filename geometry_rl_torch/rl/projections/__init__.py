@@ -1,0 +1,10 @@
+from .base import (  # noqa: F401
+    BaseProjection,
+    KLProjection,
+    entropy_equality_projection,
+    entropy_inequality_projection,
+    entropy_schedule,
+    get_projection_layer,
+    mean_projection,
+)
+from .kl import kl_diag_cov_projection  # noqa: F401

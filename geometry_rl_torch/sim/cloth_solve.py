@@ -1,8 +1,9 @@
 """Fused XPBD cloth position solve: CUDA kernel and its plain PyTorch version.
 
-Port of `geometry_rl_tpu/sim/pallas_cloth.py`. The kernel
-(`csrc/cloth_solve.cu`) replaces `cloth_position_solve_tiled` (K2); the
-plain version `cloth_position_solve_ref` computes the same math on
+Port of `geometry_rl_tpu/sim/pallas_cloth.py`. Two kernels, one per Pallas
+entry point: `csrc/cloth_solve.cu` replaces `cloth_position_solve_tiled`
+(K2) and `csrc/cloth_solve_env.cu` replaces `cloth_position_solve` (K1). The
+plain version `cloth_position_solve_ref` computes the math of both on
 [B, PT, 3] tensors and serves CPU tensors and the parity checks.
 
 Gripper cubes enter the solve as pseudo-particles P..P+G-1 (their rotation is
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 # kernel launches since the last reset, counted where the kernel launches
-LAUNCHES = {"cloth_solve": 0}
+LAUNCHES = {"cloth_solve": 0, "cloth_solve_env": 0}
 
 
 class ClothSolveSpec(NamedTuple):
@@ -196,18 +197,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _kernel_fn():
+def _kernel_fn(name: str):
+    """The ctypes entry `<name>_launch` of `csrc/<name>.cu`, built at first use."""
     from ..cuda_build import load_library
 
-    lib = load_library("cloth_solve")
-    fn = lib.cloth_solve_launch
+    fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = [_P] * 15 + [_I] * 6 + [_F] * 5 + [_P]
         fn.restype = _I
     return fn
 
 
-def cloth_position_solve_cuda(
+def _kernel_operands(
+    name: str,
     spec: ClothSolveSpec,
     x: torch.Tensor,
     prev_x: torch.Tensor,
@@ -218,13 +220,13 @@ def cloth_position_solve_cuda(
     groups: ClothGroups,
     self_pair_mask: Optional[torch.Tensor] = None,
     self_active: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Launch `csrc/cloth_solve.cu` on the current stream. Checks device,
-    dtype (f32 / i32), shape and contiguity of every operand and raises on
-    anything the kernel does not take."""
+) -> Tuple[torch.Tensor, list]:
+    """Check device, dtype (f32 / i32), shape and contiguity of every operand,
+    raising on anything the kernels do not take; return the output tensor and
+    the argument list both C entry points share."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"cloth_position_solve_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     B, PT, _ = x.shape
     P, G = spec.num_particles, spec.num_bodies
     n_g, c_total = len(spec.group_sizes), int(sum(spec.group_sizes))
@@ -243,8 +245,7 @@ def cloth_position_solve_cuda(
     _check("groups.mask", groups.mask, f32, (B, c_total), dev)
     _check("groups.offset", groups.offset, i32, (n_g + 1,), dev)
     _check("groups.compliance", groups.compliance, f32, (n_g,), dev)
-    self_on = spec.self_min_dist > 0.0
-    if self_on:
+    if spec.self_min_dist > 0.0:
         if self_pair_mask is None or self_active is None:
             raise ValueError("self-collision is on: self_pair_mask and self_active are required")
         _check("self_pair_mask", self_pair_mask, f32, (PT, PT), dev)
@@ -252,29 +253,54 @@ def cloth_position_solve_cuda(
         pm_ptr, act_ptr = self_pair_mask.data_ptr(), self_active.data_ptr()
     else:
         pm_ptr = act_ptr = None
-
-    fn = _kernel_fn()
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            x.data_ptr(), prev_x.data_ptr(), inv_mass.data_ptr(), hanger.data_ptr(),
-            att_body_w.data_ptr(), att_particle.data_ptr(), groups.i.data_ptr(),
-            groups.j.data_ptr(), groups.rest.data_ptr(), groups.mask.data_ptr(),
-            groups.offset.data_ptr(), groups.compliance.data_ptr(), pm_ptr, act_ptr,
-            out.data_ptr(), B, P, G, n_g, c_total, spec.iterations, spec.dt,
-            spec.hook_radius, spec.hook_half_len, spec.hook_friction, spec.self_min_dist,
-            stream,
-        )
+    args = [
+        x.data_ptr(), prev_x.data_ptr(), inv_mass.data_ptr(), hanger.data_ptr(),
+        att_body_w.data_ptr(), att_particle.data_ptr(), groups.i.data_ptr(),
+        groups.j.data_ptr(), groups.rest.data_ptr(), groups.mask.data_ptr(),
+        groups.offset.data_ptr(), groups.compliance.data_ptr(), pm_ptr, act_ptr,
+        out.data_ptr(), B, P, G, n_g, c_total, spec.iterations, spec.dt,
+        spec.hook_radius, spec.hook_half_len, spec.hook_friction, spec.self_min_dist,
+    ]
+    return out, args
+
+
+def _launch(name: str, out: torch.Tensor, args: list) -> torch.Tensor:
+    fn = _kernel_fn(name)
+    with torch.cuda.device(out.device):
+        err = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"cloth_solve kernel launch failed: CUDA error {err}")
-    LAUNCHES["cloth_solve"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 
-def cloth_position_solve(spec: ClothSolveSpec, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
-    """The env's solve: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. No fallback: a CUDA tensor launches the kernel or raises."""
+def cloth_position_solve_cuda(spec: ClothSolveSpec, x: torch.Tensor, *operands) -> torch.Tensor:
+    """Launch `csrc/cloth_solve.cu` (K2's port, one CTA per env) on the
+    current stream. Operands as `cloth_position_solve_ref`."""
+    out, args = _kernel_operands("cloth_solve", spec, x, *operands)
+    return _launch("cloth_solve", out, args)
+
+
+def cloth_position_solve_env_cuda(spec: ClothSolveSpec, x: torch.Tensor, *operands) -> torch.Tensor:
+    """Launch `csrc/cloth_solve_env.cu` (K1's port, one warp per env, 4 envs
+    per CTA) on the current stream. Operands as `cloth_position_solve_ref`."""
+    if len(spec.group_sizes) > 32:
+        raise ValueError(f"cloth_solve_env takes at most 32 distance groups, got {len(spec.group_sizes)}")
+    out, args = _kernel_operands("cloth_solve_env", spec, x, *operands)
+    return _launch("cloth_solve_env", out, args)
+
+
+KERNELS = {"tiled": cloth_position_solve_cuda, "per_env": cloth_position_solve_env_cuda}
+
+
+def cloth_position_solve(spec: ClothSolveSpec, x: torch.Tensor, *args, kernel: str = "tiled", **kwargs) -> torch.Tensor:
+    """The env's solve: for CUDA tensors the kernel named by `kernel`
+    ("tiled": K2's port, "per_env": K1's), for CPU tensors the plain version,
+    which both kernels compute. No fallback: a CUDA tensor launches the kernel
+    or raises."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {sorted(KERNELS)}, got {kernel!r}")
     if x.device.type == "cpu":
         return cloth_position_solve_ref(spec, x, *args, **kwargs)
-    return cloth_position_solve_cuda(spec, x, *args, **kwargs)
+    return KERNELS[kernel](spec, x, *args, **kwargs)

@@ -1,5 +1,6 @@
 """Agent builders (port of `geometry_rl_tpu/train/builders.py` for the
-ported combination: cloth_hanging + HEPi policy + DeepSets critic)."""
+ported combination: cloth_hanging + HEPi policy + DeepSets critic + the
+projection of the algorithm)."""
 
 from __future__ import annotations
 
@@ -11,15 +12,17 @@ from ..envs import make_env
 from ..envs.cloth import ClothEnv
 from ..graphs.cloth import ClothGraphBuilder
 from ..models import DeepSets, DiagGaussianPolicy, GraphValueNet, HEPi
+from ..rl.projections import get_projection_layer
 from .ppo import TrainConfig, Trainer
 
 
-def make_graph_builder(env, dist_as_pos: bool, model: str = ""):
+def make_graph_builder(env, dist_as_pos: bool, model: str = "", **builder_kw):
     """The task family's data layer. `dist_as_pos=True` marks the policy
-    builder; the cloth critic additionally keeps the particle nodes."""
+    builder; the cloth critic additionally keeps the particle nodes.
+    builder_kw forwards training_noise / training_noise_std."""
     if not isinstance(env, ClothEnv):
         raise NotImplementedError(f"graph builder for {type(env).__name__} is not ported yet")
-    return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos)
+    return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
 
 
 def build_policy(model_name: str, env, builder, latent_dim: int = 64, num_ori: int = 16, dtype=torch.float32,
@@ -57,16 +60,44 @@ def build_agent(
     algo: str = "trpl",
     latent_dim: int = 64,
     num_ori: int = 16,
+    mean_bound: float = 0.05,
+    cov_bound: float = 0.0025,
+    trust_region_coeff: float = 1.0,
+    proj_type: str = "kl",
     train_cfg: Optional[TrainConfig] = None,
     env_kwargs: Optional[dict] = None,
+    training_noise: bool = False,
+    training_noise_std: float = 1e-2,
+    entropy_schedule: Optional[str] = None,
+    target_entropy: float = 0.0,
+    temperature: float = 0.5,
+    entropy_eq: bool = False,
+    entropy_first: bool = False,
     dtype=torch.float32,
     device="cpu",
     **policy_kw,
 ) -> Trainer:
-    """One call -> ready Trainer (rollout part)."""
+    """One call -> ready Trainer."""
     env = make_env(task, num_envs=num_envs, device=device, **(env_kwargs or {}))
-    policy_builder = make_graph_builder(env, dist_as_pos=True, model=model)
-    critic_builder = make_graph_builder(env, dist_as_pos=False, model=model)
+    noise_kw = dict(training_noise=training_noise, training_noise_std=training_noise_std)
+    policy_builder = make_graph_builder(env, dist_as_pos=True, model=model, **noise_kw)
+    critic_builder = make_graph_builder(env, dist_as_pos=False, model=model, **noise_kw)
     policy = build_policy(model, env, policy_builder, latent_dim=latent_dim, num_ori=num_ori, dtype=dtype, **policy_kw)
     critic = build_critic(critic_builder, latent_dim=latent_dim, dtype=dtype, device=env.device)
-    return Trainer(env, policy, critic, train_cfg or TrainConfig(algo=algo), policy_builder, critic_builder)
+    cfg = train_cfg or TrainConfig(algo=algo)
+    # entropy schedules count network updates (the projection's `step` input)
+    n_mb = max(1, cfg.steps_per_batch * num_envs // cfg.mini_batch_size)
+    projection = get_projection_layer(
+        proj_type if algo == "trpl" else "ppo",
+        mean_bound=mean_bound,
+        cov_bound=cov_bound,
+        trust_region_coeff=trust_region_coeff,
+        entropy_schedule_type=entropy_schedule,
+        target_entropy=target_entropy,
+        temperature=temperature,
+        entropy_eq=entropy_eq,
+        entropy_first=entropy_first,
+        action_dim=env.cfg.action_dim,
+        total_train_steps=cfg.total_iterations * cfg.ppo_epochs * n_mb,
+    )
+    return Trainer(env, policy, critic, cfg, policy_builder, critic_builder, projection=projection)

@@ -1,24 +1,30 @@
-"""TRPL / PPO trainer, rollout part (port of `geometry_rl_tpu/train/ppo.py`).
+"""TRPL trainer (port of `geometry_rl_tpu/train/ppo.py`).
 
-Collection and evaluation — the system's serving path: simulator and kernel,
-observation pipeline, graph builders, policy and critic forward. Python loops
-take the place of `lax.scan`; the policy and critic parameters live in their
-`nn.Module`s. The update (GAE, the TRPL loss with its projection, Adam) is not
-ported yet.
+One `train_iteration` is the reference's: collect T control steps (simulator
+and kernel, observation pipeline, graph builders, policy and critic forward)
+-> GAE -> ppo_epochs x minibatches of the TRPL loss with the KL projection,
+backward and Adam. Python loops take the place of `lax.scan`; the policy and
+critic parameters live in their `nn.Module`s and the Adam states in the
+TrainState. Clipped PPO, KL-penalty PPO and PAPI are not ported yet (ROADMAP.md
+Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, NamedTuple, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.calibration import calibrate
 from ..models.common import init_params
 from ..rl import gaussian as G
+from ..rl.gae import gae
+from ..rl.losses import LossInputs, trpl_loss
 from ..rl.obs_pipeline import ObsNormState, obs_norm_apply, obs_norm_init, obs_norm_step
+from ..rl.projections import BaseProjection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +62,13 @@ class TrainConfig:
 
 
 class TrainState(NamedTuple):
+    actor_opt: torch.optim.Adam  # over the policy module's parameters
+    critic_opt: torch.optim.Adam  # over the critic module's parameters
     norm: ObsNormState
     env_state: object
     obs: Dict[str, torch.Tensor]  # raw obs of the current env state
-    generator: torch.Generator  # action sampling
-    num_updates: int
+    generator: torch.Generator  # action sampling and minibatch permutations
+    num_updates: int  # network updates so far (lr anneal, projection step)
     initial_entropy: torch.Tensor  # mean policy entropy at init
 
 
@@ -89,17 +97,36 @@ def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(int.from_bytes(digest, "little") >> 2)
 
 
-class Trainer:
-    """Wires env + graph builders + policy/critic modules into the rollout."""
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares over all tensors."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
-    def __init__(self, env, policy, critic, cfg: TrainConfig, policy_builder, critic_builder):
+
+class Trainer:
+    """Wires env + graph builders + policy/critic modules + projection into
+    the rollout and the update."""
+
+    NOISE_SEED = 0x6E015E  # the training noise's base seed
+
+    def __init__(self, env, policy, critic, cfg: TrainConfig, policy_builder, critic_builder,
+                 projection: Optional[BaseProjection] = None):
         self.env = env
         self.policy = policy
         self.critic = critic
         self.cfg = cfg
         self.policy_builder = policy_builder
         self.critic_builder = critic_builder
+        self.projection = projection
         self.device = env.device
+
+        n_samples = cfg.steps_per_batch * env.cfg.num_envs
+        self.num_minibatches = max(1, n_samples // cfg.mini_batch_size)
+        self.mini_batch_size = min(cfg.mini_batch_size, n_samples)
+        self.total_network_updates = cfg.total_iterations * cfg.ppo_epochs * self.num_minibatches
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ init
 
@@ -119,16 +146,21 @@ class Trainer:
         g_c, f_c = self.critic_builder.build(tobs)
         init_params(self.critic, g_critic)
         calibrate(self.critic, g_c, f_c)
-        return TrainState(norm=norm, env_state=env_state, obs=obs, generator=g_rest, num_updates=0, initial_entropy=initial_entropy)
+        return TrainState(
+            actor_opt=torch.optim.Adam(self.policy.parameters(), lr=self.cfg.lr, eps=1e-5),
+            critic_opt=torch.optim.Adam(self.critic.parameters(), lr=self.cfg.lr, eps=1e-5),
+            norm=norm, env_state=env_state, obs=obs, generator=g_rest, num_updates=0,
+            initial_entropy=initial_entropy,
+        )
 
     # --------------------------------------------------------------- forward
 
-    def _policy_dist(self, tobs, env_ids=None) -> G.DiagGaussian:
-        graph, feats = self.policy_builder.build(tobs, env_ids)
+    def _policy_dist(self, tobs, env_ids=None, noise_generator=None) -> G.DiagGaussian:
+        graph, feats = self.policy_builder.build(tobs, env_ids, noise_generator)
         return self.policy(graph, feats)
 
-    def _value(self, tobs, env_ids=None) -> torch.Tensor:
-        graph, feats = self.critic_builder.build(tobs, env_ids)
+    def _value(self, tobs, env_ids=None, noise_generator=None) -> torch.Tensor:
+        graph, feats = self.critic_builder.build(tobs, env_ids, noise_generator)
         return self.critic(graph, feats)
 
     # --------------------------------------------------------------- collect
@@ -168,6 +200,132 @@ class Trainer:
             "train/episodes": ep_cnt.float(),
         }
         return new_state, batch, stats
+
+    # ---------------------------------------------------------------- update
+
+    def _minibatch_loss(self, mb: Dict, num_updates: int, initial_entropy=None):
+        """Total loss (actor + critic) of one minibatch and its metrics."""
+        cfg = self.cfg
+        if cfg.algo != "trpl":
+            raise NotImplementedError(f"algo {cfg.algo!r} is not ported yet (ROADMAP.md Queue 1 item 10)")
+        # training-noise augmentation: a fresh draw per network update, on
+        # training forwards only
+        nk_a = nk_c = None
+        if self.policy_builder.training_noise or self.critic_builder.training_noise:
+            base = torch.Generator(device=self.device).manual_seed(self.NOISE_SEED)
+            nk_a, nk_c = split_generator(fold_in(base, num_updates), 2)
+        dist = self._policy_dist(mb["tobs"], mb["env_ids"], nk_a)
+        value = self._value(mb["tobs"], mb["env_ids"], nk_c)
+        inputs = LossInputs(
+            action=mb["action"], sample_log_prob=mb["log_prob"], advantage=mb["advantage"],
+            value_target=mb["value_target"], old_value=mb["value"],
+        )
+        actor_loss, critic_loss, metrics = trpl_loss(
+            dist, G.DiagGaussian(mb["mean"], mb["std"]), value, inputs, self.projection,
+            step=num_updates, initial_entropy=initial_entropy, entropy_coef=cfg.entropy_coef,
+            critic_coef=cfg.critic_coef, clip_value=cfg.clip_value, loss_critic_type=cfg.loss_critic_type,
+            normalize_advantage=cfg.normalize_advantage, entropy_bonus=cfg.entropy_bonus,
+        )
+        return actor_loss + critic_loss, metrics
+
+    def _permutation(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """One epoch's minibatch indices [n_mb, mb_size]: a permutation of the
+        n samples, truncated to n_mb * mb_size."""
+        n_mb, mb_size = self.num_minibatches, self.mini_batch_size
+        perm = torch.randperm(n, generator=generator, device=generator.device)
+        return perm[: n_mb * mb_size].reshape(n_mb, mb_size).to(self.device)
+
+    def _optimizer_step(self, opt: torch.optim.Adam, num_updates: int) -> None:
+        """optax's chain: clip_by_global_norm (g * max / norm where norm >
+        max) before Adam, Adam's lr annealed linearly over the run's updates."""
+        cfg = self.cfg
+        params = [p for group in opt.param_groups for p in group["params"] if p.grad is not None]
+        if cfg.clip_grad_norm:
+            norm = global_norm([p.grad for p in params])
+            for p in params:
+                p.grad.copy_(torch.where(norm < cfg.max_grad_norm, p.grad, p.grad / norm * cfg.max_grad_norm))
+        if cfg.anneal_lr:
+            frac = 1.0 - min(num_updates, self.total_network_updates) / self.total_network_updates
+            for group in opt.param_groups:
+                group["lr"] = cfg.lr * frac
+        opt.step()
+
+    def _minibatch_step(self, state: TrainState, mb: Dict, num_updates: int) -> Dict[str, torch.Tensor]:
+        """Loss, backward, and one Adam step of actor and critic."""
+        state.actor_opt.zero_grad(set_to_none=True)
+        state.critic_opt.zero_grad(set_to_none=True)
+        loss, metrics = self._minibatch_loss(mb, num_updates, state.initial_entropy)
+        loss.backward()
+        # pre-clip gradient magnitude; `_max` aggregates as a max below
+        gn = global_norm([p.grad for p in self.policy.parameters() if p.grad is not None])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm_actor"] = metrics["grad_norm_actor_max"] = gn
+        self._optimizer_step(state.actor_opt, num_updates)
+        self._optimizer_step(state.critic_opt, num_updates)
+        return metrics
+
+    def _update_data(self, state: TrainState, batch: Batch) -> Dict:
+        """GAE (bootstrapped with the current critic on the post-rollout
+        observation) and the batch flattened [T, B] -> [T*B]."""
+        cfg = self.cfg
+        B, T = self.env.cfg.num_envs, cfg.steps_per_batch
+        with torch.no_grad():
+            _, final_tobs = obs_norm_step(state.norm, state.obs, update=False)
+            bootstrap = self._value(final_tobs)
+            advantage, value_target = gae(
+                batch.reward, batch.value, batch.done.float(), bootstrap, cfg.gamma, cfg.gae_lambda
+            )
+
+        def flat(x):
+            return x.reshape((T * B,) + x.shape[2:])
+
+        return {
+            "tobs": {k: flat(v) for k, v in batch.tobs.items()},
+            "action": flat(batch.action),
+            "log_prob": flat(batch.log_prob),
+            "mean": flat(batch.mean),
+            "std": flat(batch.std),
+            "value": flat(batch.value),
+            "advantage": flat(advantage),
+            "value_target": flat(value_target),
+            "env_ids": torch.arange(B, device=self.device).repeat(T),
+        }
+
+    def _update(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """ppo_epochs x minibatches of loss, backward and Adam."""
+        data = self._update_data(state, batch)
+        n = data["action"].shape[0]
+        num_updates = state.num_updates
+        stacked: Dict[str, List[torch.Tensor]] = {}
+        for _ in range(self.cfg.ppo_epochs):
+            for idx in self._permutation(state.generator, n):
+                mb = {k: ({g: x[idx] for g, x in v.items()} if k == "tobs" else v[idx]) for k, v in data.items()}
+                for k, v in self._minibatch_step(state, mb, num_updates).items():
+                    stacked.setdefault(k, []).append(v)
+                num_updates += 1
+        # means over the epoch x minibatch stack, except the `_max` keys,
+        # which aggregate as true maxes
+        metrics = {k: (torch.stack(v).max() if k.endswith("_max") else torch.stack(v).mean()) for k, v in stacked.items()}
+        vt, v = data["value_target"], data["value"]
+        metrics["train/explained_variance"] = 1.0 - (vt - v).var(correction=0) / torch.clamp(vt.var(correction=0), min=1e-8)
+        return state._replace(num_updates=num_updates), metrics
+
+    # -------------------------------------------------------------- full step
+
+    def train_iteration(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Collect, then update. Also reports each half's seconds, ending in a
+        device synchronize (`train/collect_time`, `train/update_time`)."""
+        self._sync()
+        t0 = time.perf_counter()
+        state, batch, collect_stats = self._collect(state)
+        self._sync()
+        t1 = time.perf_counter()
+        state, metrics = self._update(state, batch)
+        self._sync()
+        metrics.update(collect_stats)
+        metrics["train/collect_time"] = torch.tensor(t1 - t0)
+        metrics["train/update_time"] = torch.tensor(time.perf_counter() - t1)
+        return state, metrics
 
     # ------------------------------------------------------------------ eval
 

@@ -10,9 +10,16 @@ import torch
 
 from geometry_rl_torch.config import load_config, trainer_from_config
 from geometry_rl_torch.envs import make_env
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES, cloth_position_solve_cuda, cloth_position_solve_ref
+from geometry_rl_torch.sim.cloth_solve import (
+    LAUNCHES,
+    cloth_position_solve_cuda,
+    cloth_position_solve_env_cuda,
+    cloth_position_solve_ref,
+)
 
 ATOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate for the cloth solve
+# K2's port (one CTA per env) and K1's (one warp per env)
+KERNELS = {"cloth_solve": cloth_position_solve_cuda, "cloth_solve_env": cloth_position_solve_env_cuda}
 
 
 @pytest.fixture
@@ -48,27 +55,46 @@ def folded_operands(env, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("num_envs,self_collision", [(100, False), (4, True)])
-def test_cuda_kernel_matches_plain_version(cuda_device, num_envs, self_collision):
+def test_cuda_kernel_matches_plain_version(cuda_device, num_envs, self_collision, kernel):
     env = make_env("cloth_hanging", num_envs=num_envs, warmup_steps=0, self_collision=self_collision, device=cuda_device)
     args = folded_operands(env, seed=3)
-    before = LAUNCHES["cloth_solve"]
-    out = cloth_position_solve_cuda(*args)
+    before = dict(LAUNCHES)
+    out = KERNELS[kernel](*args)
     torch.cuda.synchronize()
-    assert LAUNCHES["cloth_solve"] == before + 1
+    assert LAUNCHES == {**before, kernel: before[kernel] + 1}
     assert (out - cloth_position_solve_ref(*args)).abs().max().item() <= ATOL
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_rejects_bad_operands(cuda_device):
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_cuda_kernel_rejects_bad_operands(cuda_device, kernel):
+    solve = KERNELS[kernel]
     env = make_env("cloth_hanging", num_envs=4, warmup_steps=0, device=cuda_device)
     spec, x, *rest = folded_operands(env, seed=0)
     with pytest.raises(TypeError, match="dtype"):
-        cloth_position_solve_cuda(spec, x.double(), *rest)
+        solve(spec, x.double(), *rest)
     with pytest.raises(ValueError, match="contiguous"):
-        cloth_position_solve_cuda(spec, x.transpose(0, 1).contiguous().transpose(0, 1), *rest)
+        solve(spec, x.transpose(0, 1).contiguous().transpose(0, 1), *rest)
     with pytest.raises(ValueError, match="on cpu"):
-        cloth_position_solve_cuda(spec, x, rest[0].cpu(), *rest[1:])
+        solve(spec, x, rest[0].cpu(), *rest[1:])
+    with pytest.raises(ValueError, match="particles"):
+        solve(spec, x[:, :-1].contiguous(), *rest)
+
+
+@pytest.mark.cuda
+def test_per_env_solver_mode_launches_only_its_kernel(cuda_device):
+    """`use_pallas_solver=True` steps through K1's port alone: 2 substeps per
+    control step, one launch each."""
+    env = make_env("cloth_hanging", num_envs=8, warmup_steps=0, use_pallas_solver=True, device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    for _ in range(3):
+        state, ts = env.step(state, torch.zeros((8, env.cfg.action_dim), device=cuda_device))
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 6}
+    assert torch.isfinite(state.scene.particles.pos).all() and torch.isfinite(ts.reward).all()
 
 
 @pytest.mark.cuda
@@ -99,3 +125,23 @@ def test_cuda_slice_matches_cpu(cuda_device):
             ec, ts_c = cpu.env.step(ec, a_c)
             for g, c in ((a_g, a_c), (ts_g.reward, ts_c.reward), (eg.scene.particles.pos, ec.scene.particles.pos)):
                 assert (g.cpu() - c).abs().max().item() <= 1e-4 * max(1.0, c.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_train_iteration_on_the_card_is_finite(cuda_device):
+    """One small collect + update on the card with `use_pallas_solver=True`:
+    finite metrics, params that moved, and K1's port the only solve."""
+    cfg = load_config("cloth_hanging_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 8, "kwargs": {"warmup_steps": 1, "episode_length": 4, "use_pallas_solver": True}},
+        "collector": {"frames_per_batch": 64}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 16}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 2 * (1 + 8)}
+    assert state.num_updates == 5 * 4
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())

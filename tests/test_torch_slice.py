@@ -119,17 +119,28 @@ def test_rollout_and_eval_run_on_cpu():
     assert not torch.equal(state.generator.get_state(), gen_state)  # collection sampled actions
 
 
-def test_port_imports_no_jax():
-    """The slice on the CPU (trainer_from_config -> init -> a 2-step _collect)
-    imports neither jax, flax, optax nor the JAX package."""
+def test_port_imports_no_jax(tmp_path):
+    """The port on the CPU (trainer_from_config -> init -> a 2-step _collect
+    -> train_iteration, then the training CLI and play on a tiny run with
+    `use_pallas_solver=true`) imports neither jax, flax, optax nor the JAX
+    package."""
     code = (
         "import sys, json, torch\n"
         "from geometry_rl_torch.config import load_config, trainer_from_config\n"
+        "from geometry_rl_torch.train import cli, play\n"
         "cfg = load_config('cloth_hanging_multi_hepi_trpl', overrides={'env': {'num_envs': 2, 'kwargs': "
-        "{'warmup_steps': 1}}, 'collector': {'frames_per_batch': 4}, 'algorithm': {'latent_dim': 8, 'num_ori': 4}})\n"
+        "{'warmup_steps': 1}}, 'collector': {'frames_per_batch': 4}, 'algorithm': {'latent_dim': 8, 'num_ori': 4, "
+        "'objective': {'mini_batch_size': 2}}})\n"
         "tr = trainer_from_config(cfg)\n"
         "state, batch, _ = tr._collect(tr.init(torch.Generator().manual_seed(0)))\n"
         "assert batch.action.shape == (2, 2, 12)\n"
+        "state, metrics = tr.train_iteration(state)\n"
+        "assert state.num_updates == 2 * 5 and torch.isfinite(metrics['loss_critic']) and torch.isfinite(metrics['kl'])\n"
+        "run = cli.main(['--config', 'cloth_hanging_multi_hepi_trpl', '--device', 'cpu', '--override', "
+        "'env.num_envs=2', 'env.kwargs.warmup_steps=1', 'env.kwargs.use_pallas_solver=true', "
+        "'collector.frames_per_batch=4', 'collector.total_frames=4', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
+        f"'algorithm.objective.mini_batch_size=2', 'logger.log_dir={tmp_path}'])\n"
+        "play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '2', '--device', 'cpu'])\n"
         "print(json.dumps(sorted(m for m in ('jax', 'flax', 'optax', 'geometry_rl_tpu') if m in sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
