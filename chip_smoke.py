@@ -7,12 +7,20 @@ Phases, each printing a line; any failure raises and exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
      TF32 off for matmuls and convolutions.
   2. build: compile (or reuse) csrc/cloth_solve.cu and csrc/cloth_solve_env.cu
-     into geometry_rl_torch/_build/, both nvcc runs at once.
+     (both instantiate csrc/cloth_solve_common.cuh) into
+     geometry_rl_torch/_build/, both nvcc runs at once; per kernel, the
+     registers, shared memory and spill bytes ptxas reported. The main paths'
+     instantiations must not spill.
   3. kernels vs plain version on the card, on the real ClothEnv topology:
-     each kernel at B = 100 with self-collision off (the main paths' shapes)
-     and B = 4 with it on, max |diff| <= 2e-4; K1's port against K2's on the
-     same operands; ms per call of both kernels and the plain version at
-     B = 100 and B = 1000 (CUDA events).
+     each kernel at B = 100 and B = 1000 with self-collision off (the main
+     paths' shapes) and B = 4 with it on, max |diff| <= 2e-4; K1's port
+     against K2's on the same operands. Per kernel and shape: device ms per
+     launch (a CUDA graph of 50 launches replayed 10 times, CUDA events),
+     eager ms per call of the wrapper (200 calls) and the host's share of it,
+     the plain version's ms, and the roofline bound from `solve_cost` (bytes
+     over 3.35 TB/s, f32 operations over 67 TFLOP/s: the H100 SXM's published
+     peaks), counting the hook contacts and self-collision hits the plain
+     version made on these inputs.
   4. the rollout at full width (cloth_hanging_multi_hepi_trpl: 100 envs,
      latent 64, 16 orientations, the config's dtype): init(seed 0), one
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
@@ -50,6 +58,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOLVE_TOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate
+# the H100 SXM's published peaks (HBM bytes/s, f32 outside the tensor cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 # card vs CPU over 3 steps, relative to each quantity's scale: f32 sums in
 # another order start ~1e-7 apart (relative) and contact amplifies the gap
 # about 3x per step; the untrained policy's mean actions reach ~1e2, and the
@@ -62,6 +73,8 @@ SLICE_TOL = 1e-4
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
 LIBRARIES = ("cloth_solve", "cloth_solve_env")
+# the instantiation each library launches on the main paths (self-collision off)
+MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel"}
 # the reference's per-iteration metric keys (TRPL loss and constraint metrics,
 # update, collect and CLI keys)
 REFERENCE_KEYS = (
@@ -77,7 +90,10 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def timed_ms(fn, n: int) -> float:
+def timed_ms(fn, n: int):
+    """(ms per call of `fn` launched eagerly, between two CUDA events; host
+    ms per call, the host clock over the same loop with no synchronisation
+    inside it: what the caller spends issuing a call)."""
     import torch
 
     for _ in range(3):
@@ -85,11 +101,44 @@ def timed_ms(fn, n: int) -> float:
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(n):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return start.elapsed_time(end) / n, host
+
+
+def graph_ms(fn, launches: int = 50, replays: int = 10) -> float:
+    """Device ms per call of `fn`: `launches` calls captured in a CUDA graph,
+    replayed `replays` times between two CUDA events, so the caller's host
+    time is not counted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def bound_ms(nbytes: int, flops: int):
+    """The least time the card could take for the work: (ms, "bytes" or
+    "operations", whichever bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def moved(obj, device):
@@ -296,13 +345,14 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from geometry_rl_torch.config import load_config, trainer_from_config
-    from geometry_rl_torch.cuda_build import BUILD_SECONDS, load_library
+    from geometry_rl_torch.cuda_build import BUILD_INFO, BUILD_SECONDS, load_library
     from geometry_rl_torch.envs import make_env
     from geometry_rl_torch.sim.cloth_solve import (
         LAUNCHES,
         cloth_position_solve_cuda,
         cloth_position_solve_env_cuda,
         cloth_position_solve_ref,
+        solve_cost,
     )
 
     # ---- 2. build ---------------------------------------------------------
@@ -311,6 +361,14 @@ def main() -> int:
         list(pool.map(load_library, LIBRARIES))
     print(f"[build] " + ", ".join(f"{n}: {BUILD_SECONDS[n]:.2f} s compiling" for n in LIBRARIES)
           + f"; {time.perf_counter() - t0:.2f} s in all")
+    for lib in LIBRARIES:
+        for kernel, info in BUILD_INFO.get(lib, {}).items():
+            print(f"[build] {lib}: {kernel}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+        main = BUILD_INFO.get(lib, {}).get(MAIN_PATH_KERNELS[lib])
+        if main is None or "registers" not in main:
+            fail(f"ptxas reported nothing for {MAIN_PATH_KERNELS[lib]}")
+        if main.get("spill_store_bytes", 0) or main.get("spill_load_bytes", 0):
+            fail(f"{MAIN_PATH_KERNELS[lib]} spills registers: {main}")
 
     # ---- 3. kernels vs plain version ---------------------------------------
     t_phase = time.perf_counter()
@@ -319,21 +377,27 @@ def main() -> int:
     for B, self_collision in ((100, False), (4, True), (1000, False)):
         env = make_env("cloth_hanging", num_envs=B, warmup_steps=0, self_collision=self_collision, device="cuda")
         args = solve_inputs(env, torch.Generator(device="cuda").manual_seed(1))
-        out_r = cloth_position_solve_ref(*args)
+        events = {}
+        out_r = cloth_position_solve_ref(*args, events=events)
         shift = (out_r - args[1]).abs().max().item()
-        plain_ms = timed_ms(lambda: cloth_position_solve_ref(*args), 10)
+        plain_ms = timed_ms(lambda: cloth_position_solve_ref(*args), 10)[0]
+        nbytes, flops = solve_cost(env.solve_spec, B, **events)  # the contacts these inputs make
+        bound, bound_by = bound_ms(nbytes, flops)
         outs = {}
         for name, solve in kernels.items():
             outs[name] = solve(*args)
             torch.cuda.synchronize()
             err = (outs[name] - out_r).abs().max().item()
-            ms = timed_ms(lambda: solve(*args), 200)
+            ms, (eager, host) = graph_ms(lambda: solve(*args)), timed_ms(lambda: solve(*args), 200)
             print(f"[kernel] {name} B={B} self_collision={self_collision}: max|kernel - plain| = {err:.3e} "
-                  f"(tol {SOLVE_TOL}; the solve moved x by up to {shift:.3e}); kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms per call on {card}")
+                  f"(tol {SOLVE_TOL}; the solve moved x by up to {shift:.3e}); kernel {ms:.5f} ms on the device "
+                  f"({eager:.5f} ms per eager call, {host:.5f} ms of it on the host), plain {plain_ms:.4f} ms per "
+                  f"call; bound {bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} f32 operations with "
+                  f"{events['contacts']} hook contacts and {events['self_hits']} self-collision hits), "
+                  f"{100 * bound / ms:.2f}% of it; on {card}")
             if not err <= SOLVE_TOL:
                 fail(f"{name} disagrees with the plain version at B={B}: {err}")
-            kernel_stats[(name, B, self_collision)] = (err, ms, plain_ms)
+            kernel_stats[(name, B, self_collision)] = (err, ms, plain_ms, bound, bound_by)
         k1_k2 = (outs["cloth_solve_env"] - outs["cloth_solve"]).abs().max().item()
         print(f"[kernel] K1's port vs K2's at B={B} self_collision={self_collision}: max |diff| = {k1_k2:.3e} (tol {SOLVE_TOL})")
         if not k1_k2 <= SOLVE_TOL:
@@ -440,7 +504,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",
          "replaces": f"geometry_rl_tpu/sim/pallas_cloth.py:{line}", "launches": n_launch,
          "max_abs_err": kernel_stats[(name, 100, False)][0], "ms": kernel_stats[(name, 100, False)][1],
-         "plain_ms": kernel_stats[(name, 100, False)][2]}
+         "plain_ms": kernel_stats[(name, 100, False)][2], "bound_ms": kernel_stats[(name, 100, False)][3],
+         "bound_by": kernel_stats[(name, 100, False)][4], "library_ms": None,
+         "ms_b1000": kernel_stats[(name, 1000, False)][1], "bound_ms_b1000": kernel_stats[(name, 1000, False)][3],
+         "ms_self_b4": kernel_stats[(name, 4, True)][1]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ]}))
     print(smi)

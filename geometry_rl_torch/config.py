@@ -178,7 +178,7 @@ def available_configs():
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def trainer_from_config(cfg: Dict, device="cpu"):
+def trainer_from_config(cfg: Dict, device="cuda"):
     """Build the Trainer from a loaded config dict. Parameters stay float32;
     activations run in `algorithm.dtype`."""
     from .train.builders import build_agent

@@ -1,215 +1,20 @@
-// Fused XPBD cloth position solve for Hopper (sm_90a).
+// K2's port: the fused XPBD cloth position solve in K2's operation order.
 //
 // Replaces `geometry_rl_tpu/sim/pallas_cloth.py:cloth_position_solve_tiled`
 // (kernel K2, `_kernel_tiled` -> `_solve_tile`), which the cloth env runs
-// twice per control step. It computes the same solve: for each env,
-// `iterations` XPBD passes of
-//   - one compliant distance solve per conflict-free constraint group,
-//   - an optional all-pairs particle self-collision pass (Jacobi),
-//   - rest-0 attachments corner particle <-> gripper pseudo-particle,
-//   - capsule hook contact with Coulomb friction (cloth particles only).
-// The public layout stays the reference's x [B, PT, 3] (PT = P + G); the
-// TPU kernel's lane-major transpose is not carried over.
-//
-// What bounds it on this card: not bytes. At B = 100 a call moves about
-// 1.5 MB (x, prev, masks in; x out), a microsecond of HBM time. The solve is
-// a chain of 10 x (12 + 2) dependent passes over ~230 particles, so the time
-// is per-launch latency plus ~140 block-wide barriers and the latency of the
-// sqrt/divide chain inside each pass.
-//
-// What the design does about it: one CTA per env (100 CTAs fit one wave on
-// 132 SMs), the whole env state (x, prev, inverse masses) and the constraint
-// topology with the env's masks in shared memory for all iterations, so
-// device memory is touched once on the way in and once on the way out. The
-// iterations loop inside the kernel; one thread per constraint, particle or
-// attachment, with a __syncthreads() between dependent passes. Groups are
-// conflict-free (each particle at most once per group, checked on the host
-// when the env is built), so each constraint thread reads and writes its two
-// particles with no atomics. The launch is one per substep on the caller's
-// stream; nothing synchronises.
+// twice per control step in solver mode "auto" / "tiled". The solve, what
+// bounds it on this card and the design are in `cloth_solve_common.cuh`;
+// this file instantiates it with K2's order (multiply by the inverse
+// distance) and exports the C entry point `cloth_solve_launch`.
 
-#include <cuda_runtime.h>
+#include "cloth_solve_common.cuh"
 
-namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float norm3(float a, float b, float c) {
-  return sqrtf(a * a + b * b + c * c);
+extern "C" __global__ void __launch_bounds__(cloth::kThreads) cloth_solve_kernel(const cloth::SolveArgs a) {
+  cloth::solve<cloth::Order::kInverse, false>(a);
 }
 
-__global__ void __launch_bounds__(kThreads) cloth_solve_kernel(
-    const float* __restrict__ x, const float* __restrict__ prev,
-    const float* __restrict__ inv_mass, const float* __restrict__ hanger,
-    const float* __restrict__ body_w, const int* __restrict__ att_particle,
-    const int* __restrict__ group_i, const int* __restrict__ group_j,
-    const float* __restrict__ group_rest, const float* __restrict__ group_mask,
-    const int* __restrict__ group_offset, const float* __restrict__ group_compliance,
-    const float* __restrict__ pair_mask, const float* __restrict__ active,
-    float* __restrict__ out, int P, int G, int n_groups, int c_total,
-    int iterations, float dt, float hook_radius, float hook_half_len,
-    float friction, float self_min_dist) {
-  extern __shared__ float smem[];
-  const int PT = P + G;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const bool self_on = self_min_dist > 0.0f;
-
-  float* sx = smem;                       // [PT * 3]
-  float* sprev = sx + 3 * PT;             // [PT * 3]
-  float* sw = sprev + 3 * PT;             // [PT]
-  float* srest = sw + PT;                 // [c_total]
-  float* smask = srest + c_total;         // [c_total]
-  float* sdx = smask + c_total;           // [PT * 3], self-collision only
-  int* si = reinterpret_cast<int*>(sdx + (self_on ? 3 * PT : 0));  // [c_total]
-  int* sj = si + c_total;                 // [c_total]
-
-  const float* xb = x + static_cast<size_t>(b) * PT * 3;
-  const float* pb = prev + static_cast<size_t>(b) * PT * 3;
-  for (int k = tid; k < 3 * PT; k += kThreads) {
-    sx[k] = xb[k];
-    sprev[k] = pb[k];
-  }
-  for (int p = tid; p < PT; p += kThreads) sw[p] = inv_mass[static_cast<size_t>(b) * PT + p];
-  for (int c = tid; c < c_total; c += kThreads) {
-    si[c] = group_i[c];
-    sj[c] = group_j[c];
-    srest[c] = group_rest[c];
-    smask[c] = group_mask[static_cast<size_t>(b) * c_total + c];
-  }
-  const float hx = hanger[b * 3 + 0], hy = hanger[b * 3 + 1], hz = hanger[b * 3 + 2];
-  const float dt2 = dt * dt;
-  __syncthreads();
-
-  for (int it = 0; it < iterations; ++it) {
-    // --- distance groups: one thread per constraint, no two threads of a
-    // group share a particle -------------------------------------------------
-    for (int g = 0; g < n_groups; ++g) {
-      const int c0 = group_offset[g], c1 = group_offset[g + 1];
-      const float alpha = group_compliance[g] / dt2;
-      for (int c = c0 + tid; c < c1; c += kThreads) {
-        const int i = si[c], j = sj[c];
-        const float wi = sw[i], wj = sw[j];
-        const float dx = sx[3 * i] - sx[3 * j];
-        const float dy = sx[3 * i + 1] - sx[3 * j + 1];
-        const float dz = sx[3 * i + 2] - sx[3 * j + 2];
-        const float dist = norm3(dx, dy, dz);
-        const float inv = 1.0f / fmaxf(dist, 1e-9f);
-        const float lam = -(dist - srest[c]) * smask[c] / fmaxf(wi + wj + alpha, 1e-12f);
-        const float li = lam * wi * inv, lj = lam * wj * inv;
-        sx[3 * i] += li * dx;
-        sx[3 * i + 1] += li * dy;
-        sx[3 * i + 2] += li * dz;
-        sx[3 * j] -= lj * dx;
-        sx[3 * j + 1] -= lj * dy;
-        sx[3 * j + 2] -= lj * dz;
-      }
-      __syncthreads();
-    }
-
-    // --- self-collision: Jacobi, every particle reads the same x ----------
-    if (self_on) {
-      for (int p = tid; p < PT; p += kThreads) {
-        const float xi = sx[3 * p], yi = sx[3 * p + 1], zi = sx[3 * p + 2];
-        const float wi = sw[p];
-        const float act_i = active[static_cast<size_t>(b) * PT + p];
-        const float* pm_row = pair_mask + static_cast<size_t>(p) * PT;
-        float ax = 0.f, ay = 0.f, az = 0.f, count = 0.f;
-        for (int q = 0; q < PT; ++q) {
-          const float dx = xi - sx[3 * q], dy = yi - sx[3 * q + 1], dz = zi - sx[3 * q + 2];
-          const float ex = dx + 1e-12f, ey = dy + 1e-12f, ez = dz + 1e-12f;
-          const float dist = sqrtf(ex * ex + ey * ey + ez * ez);
-          const float viol = fmaxf(self_min_dist - dist, 0.0f) * pm_row[q] * act_i *
-                             active[static_cast<size_t>(b) * PT + q];
-          const float corr = viol / fmaxf(wi + sw[q], 1e-12f) * wi / fmaxf(dist, 1e-9f);
-          ax += corr * dx;
-          ay += corr * dy;
-          az += corr * dz;
-          count += viol > 0.0f ? 1.0f : 0.0f;
-        }
-        count = fmaxf(count, 1.0f);
-        sdx[3 * p] = ax / count;
-        sdx[3 * p + 1] = ay / count;
-        sdx[3 * p + 2] = az / count;
-      }
-      __syncthreads();
-      for (int k = tid; k < 3 * PT; k += kThreads) sx[k] += sdx[k];
-      __syncthreads();
-    }
-
-    // --- attachments: corner particle <-> gripper pseudo-particle ---------
-    for (int a = tid; a < G; a += kThreads) {
-      const int p = att_particle[a], q = P + a;
-      const float wp = sw[p], wb = body_w[b * G + a];
-      const float cx = sx[3 * p] - sx[3 * q];
-      const float cy = sx[3 * p + 1] - sx[3 * q + 1];
-      const float cz = sx[3 * p + 2] - sx[3 * q + 2];
-      const float cn = norm3(cx, cy, cz);
-      const float inv = 1.0f / fmaxf(cn, 1e-9f);
-      const float lam = -cn / fmaxf(wp + wb, 1e-12f);
-      const float lp = lam * wp * inv, lb = lam * wb * inv;
-      sx[3 * p] += lp * cx;
-      sx[3 * p + 1] += lp * cy;
-      sx[3 * p + 2] += lp * cz;
-      sx[3 * q] -= lb * cx;
-      sx[3 * q + 1] -= lb * cy;
-      sx[3 * q + 2] -= lb * cz;
-    }
-    __syncthreads();
-
-    // --- hook contact: capsule along +y from the hanger origin ------------
-    for (int p = tid; p < P; p += kThreads) {
-      const float px = sx[3 * p], py = sx[3 * p + 1], pz = sx[3 * p + 2];
-      const float rel1 = py - hy;
-      const float y = fminf(fmaxf(rel1, 0.0f), 2.0f * hook_half_len);
-      const float dx = px - hx, dy = rel1 - y, dz = pz - hz;
-      const float dist = norm3(dx, dy, dz);
-      const float phi = dist - hook_radius;
-      if (phi < 0.0f) {
-        const float inv = 1.0f / fmaxf(dist, 1e-9f);
-        const float nx = dx * inv, ny = dy * inv, nz = dz * inv;
-        const float pen = phi;  // min(phi, 0) with phi < 0
-        const float ux = px - sprev[3 * p], uy = py - sprev[3 * p + 1], uz = pz - sprev[3 * p + 2];
-        const float dn = ux * nx + uy * ny + uz * nz;
-        const float tx = ux - dn * nx, ty = uy - dn * ny, tz = uz - dn * nz;
-        const float tn = norm3(tx, ty, tz);
-        const float scale = fminf(1.0f, friction * (-pen) / fmaxf(tn, 1e-9f));
-        sx[3 * p] = px + (-pen * nx - scale * tx);
-        sx[3 * p + 1] = py + (-pen * ny - scale * ty);
-        sx[3 * p + 2] = pz + (-pen * nz - scale * tz);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* ob = out + static_cast<size_t>(b) * PT * 3;
-  for (int k = tid; k < 3 * PT; k += kThreads) ob[k] = sx[k];
+extern "C" __global__ void __launch_bounds__(cloth::kThreads) cloth_solve_self_kernel(const cloth::SolveArgs a) {
+  cloth::solve<cloth::Order::kInverse, true>(a);
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched); the caller raises on anything else.
-extern "C" int cloth_solve_launch(
-    const float* x, const float* prev, const float* inv_mass, const float* hanger,
-    const float* body_w, const int* att_particle, const int* group_i,
-    const int* group_j, const float* group_rest, const float* group_mask,
-    const int* group_offset, const float* group_compliance, const float* pair_mask,
-    const float* active, float* out, int B, int P, int G, int n_groups,
-    int c_total, int iterations, float dt, float hook_radius, float hook_half_len,
-    float friction, float self_min_dist, void* stream) {
-  const int PT = P + G;
-  const bool self_on = self_min_dist > 0.0f;
-  const size_t bytes = sizeof(float) * (7 * PT + 2 * c_total + (self_on ? 3 * PT : 0)) +
-                       sizeof(int) * 2 * c_total;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cloth_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cloth_solve_kernel<<<B, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, prev, inv_mass, hanger, body_w, att_particle, group_i, group_j, group_rest,
-      group_mask, group_offset, group_compliance, pair_mask, active, out, P, G, n_groups,
-      c_total, iterations, dt, hook_radius, hook_half_len, friction, self_min_dist);
-  return static_cast<int>(cudaGetLastError());
-}
+CLOTH_SOLVE_C_ENTRY(cloth_solve_launch, cloth_solve_kernel, cloth_solve_self_kernel)

@@ -1,17 +1,23 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-into `_build/lib<name>-<hash>.so`, then loaded with ctypes. The hash covers
-the source and the flags, so an edited source is rebuilt and a built one is
-reused. Nothing is built at import: the first launch of a kernel builds it.
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+-Xptxas -v` into `_build/lib<name>-<hash>.so`, then loaded with ctypes. The
+hash covers the source, every shared header `csrc/*.cuh` and the flags, so
+an edited source or header is rebuilt and a built one is reused. What ptxas
+reports per kernel (registers, shared memory, spills) is kept beside the
+library as `lib<name>-<hash>.json` and in `BUILD_INFO`. Nothing is built at
+import: the first launch of a kernel builds it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,12 +29,15 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # seconds spent compiling per library in this process (0.0 = reused a build)
 BUILD_SECONDS: Dict[str, float] = {}
+# per library, per kernel: what ptxas reported (registers, smem bytes, stack
+# frame bytes, spill store and load bytes)
+BUILD_INFO: Dict[str, Dict[str, Dict[str, int]]] = {}
 
 
 def find_nvcc() -> str:
@@ -45,9 +54,36 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel, the numbers of nvcc's `-Xptxas -v` report."""
+    info: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            kernel = m.group(1)
+            info.setdefault(kernel, {})
+            continue
+        if kernel is None:
+            continue
+        for key, pattern in (
+            ("stack_bytes", r"(\d+) bytes stack frame"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"),
+            ("registers", r"Used (\d+) registers"),
+            ("smem_bytes", r"(\d+) bytes smem"),
+        ):
+            m = re.search(pattern, line)
+            if m:
+                info[kernel][key] = int(m.group(1))
+    return info
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -56,6 +92,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     path = library_path(name)
+    info_path = path[: -len(".so")] + ".json"
     BUILD_SECONDS[name] = 0.0
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -67,11 +104,16 @@ def load_library(name: str) -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed building {name}.cu:\n{proc.stderr}")
+            with open(info_path, "w") as f:
+                json.dump(parse_ptxas(proc.stdout + proc.stderr), f)
             os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
         BUILD_SECONDS[name] = time.perf_counter() - t0
+    if os.path.exists(info_path):
+        with open(info_path) as f:
+            BUILD_INFO[name] = json.load(f)
     lib = ctypes.CDLL(path)
     _LOADED[name] = lib
     return lib

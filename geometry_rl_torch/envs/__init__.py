@@ -8,7 +8,7 @@ NOT_PORTED = (
 )
 
 
-def make_env(task: str, num_envs: int = 40, device="cpu", **kwargs):
+def make_env(task: str, num_envs: int = 40, device="cuda", **kwargs):
     """Env factory keyed by task name. Only cloth_hanging is ported so far."""
     if task == "cloth_hanging":
         return ClothEnv(cloth_hanging_cfg(num_envs=num_envs, **kwargs), device=device)

@@ -173,9 +173,12 @@ class ClothEnvState(NamedTuple):
 
 
 class ClothEnv:
-    def __init__(self, cfg: ClothTaskCfg, device="cpu"):
+    def __init__(self, cfg: ClothTaskCfg, device="cuda"):
         self.cfg = cfg
         self.device = device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ClothEnv runs on the card by default and torch finds no CUDA device; "
+                               "pass device='cpu' to run on the CPU")
         B = cfg.num_envs
 
         mode = cfg.use_pallas_solver

@@ -1,10 +1,14 @@
 """Fused XPBD cloth position solve: CUDA kernel and its plain PyTorch version.
 
 Port of `geometry_rl_tpu/sim/pallas_cloth.py`. Two kernels, one per Pallas
-entry point: `csrc/cloth_solve.cu` replaces `cloth_position_solve_tiled`
-(K2) and `csrc/cloth_solve_env.cu` replaces `cloth_position_solve` (K1). The
-plain version `cloth_position_solve_ref` computes the math of both on
-[B, PT, 3] tensors and serves CPU tensors and the parity checks.
+entry point, both instantiations of one Hopper design
+(`csrc/cloth_solve_common.cuh`: a CTA of 128 threads per env, constraint data
+in registers) in the TPU kernel's own operation order: `csrc/cloth_solve.cu`
+replaces `cloth_position_solve_tiled` (K2) and `csrc/cloth_solve_env.cu`
+replaces `cloth_position_solve` (K1). The plain version
+`cloth_position_solve_ref` computes the math of both on [B, PT, 3] tensors
+and serves CPU tensors and the parity checks; it takes any shape, the kernels
+those `check_kernel_limits` accepts.
 
 Gripper cubes enter the solve as pseudo-particles P..P+G-1 (their rotation is
 locked and they attach at their centre of mass, so their rigid dynamics reduce
@@ -17,13 +21,42 @@ friction on cloth particles only.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 # kernel launches since the last reset, counted where the kernel launches
 LAUNCHES = {"cloth_solve": 0, "cloth_solve_env": 0}
+
+# the kernels' limits (`csrc/cloth_solve_common.cuh`): a CTA of KERNEL_THREADS
+# threads per env, thread t owns constraint t of every group and particles t
+# and t + KERNEL_THREADS
+KERNEL_THREADS = 128
+MAX_GROUPS = 16
+MAX_GROUP_SIZE = KERNEL_THREADS
+MAX_PARTICLES = 2 * KERNEL_THREADS
+
+# f32 operations per item and XPBD iteration, counted from the kernels'
+# formulas in K2's operation order, the cheaper one (sqrt, divide, min and max
+# count as one each). Every iteration: a distance constraint, a corner
+# attachment, the hook test of a cloth particle (clamp, distance, phi < 0), the
+# test of a self-collision pair (distance, violation, > 0) and a particle's
+# self-collision update. Only where the test holds: the contact response of a
+# particle on the hook, the correction of a violating pair.
+OPS_PER_CONSTRAINT = 31
+OPS_PER_ATTACHMENT = 29
+OPS_PER_HOOK_TEST = 14
+OPS_PER_CONTACT = 42
+OPS_PER_SELF_TEST = 18
+OPS_PER_SELF_HIT = 13
+OPS_PER_SELF_UPDATE = 7
+# once per call: a constraint's divisor max(w_i + w_j + alpha, 1e-12), an
+# attachment's max(w_p + w_b, 1e-12), a group's alpha = compliance / dt^2
+OPS_PER_CONSTRAINT_DIVISOR = 3
+OPS_PER_ATTACHMENT_DIVISOR = 2
+OPS_PER_GROUP_ALPHA = 1
 
 
 class ClothSolveSpec(NamedTuple):
@@ -61,6 +94,74 @@ def check_conflict_free(group_topology: Sequence) -> None:
         both = np.concatenate([torch.as_tensor(group_topology[3 * g + k]).cpu().numpy() for k in (0, 1)])
         if np.unique(both).size != both.size:
             raise ValueError(f"distance group {g} is not conflict-free: a particle appears twice")
+
+
+def check_kernel_limits(spec: ClothSolveSpec, att_particle: Optional[Sequence[int]] = None) -> None:
+    """Raise for a shape the CUDA kernels do not take: more than 128
+    constraints in a group, more than 16 groups, more than 256 particles
+    (P + G), or attachment particles that repeat or are not cloth particles
+    (each cloth particle's owner thread does its attachment and its hook
+    contact in one pass). The plain version takes any shape."""
+    n_g = len(spec.group_sizes)
+    if n_g > MAX_GROUPS:
+        raise ValueError(f"the cloth kernels take at most {MAX_GROUPS} distance groups, got {n_g}")
+    big = [g for g, n in enumerate(spec.group_sizes) if n > MAX_GROUP_SIZE]
+    if big:
+        raise ValueError(f"the cloth kernels take at most {MAX_GROUP_SIZE} constraints per group; "
+                         f"group {big[0]} has {spec.group_sizes[big[0]]}")
+    pt = spec.num_particles + spec.num_bodies
+    if pt > MAX_PARTICLES:
+        raise ValueError(f"the cloth kernels take at most {MAX_PARTICLES} particles (P + G), got {pt}")
+    if att_particle is not None:
+        att = [int(a) for a in att_particle]
+        if len(att) != spec.num_bodies or len(set(att)) != len(att) or not all(0 <= a < spec.num_particles for a in att):
+            raise ValueError(f"attachment particles must be {spec.num_bodies} distinct cloth indices in "
+                             f"[0, {spec.num_particles}), got {att}")
+
+
+# att_particle tensors already checked, by id: the version of the tensor that
+# passed. The wrappers read a tensor's values from the card once, not per
+# launch; an entry goes when its tensor dies, before its id can be reused.
+_ATT_CHECKED: Dict[int, int] = {}
+
+
+def _check_att_once(spec: ClothSolveSpec, att_particle: torch.Tensor) -> None:
+    key = id(att_particle)
+    if _ATT_CHECKED.get(key) == att_particle._version:
+        return
+    check_kernel_limits(spec, att_particle.tolist())
+    if key not in _ATT_CHECKED:
+        weakref.finalize(att_particle, _ATT_CHECKED.pop, key, None)
+    _ATT_CHECKED[key] = att_particle._version
+
+
+def solve_cost(spec: ClothSolveSpec, B: int, contacts: int = 0, self_hits: int = 0) -> Tuple[int, int]:
+    """(bytes, f32 operations) of one solve of B envs: every operand read once
+    and the output written once; the operations every iteration does, plus
+    the contact responses and self-collision corrections these inputs need.
+    `contacts` and `self_hits` count them over all envs and iterations, as
+    `cloth_position_solve_ref(..., events=...)` reports them; left at 0 the
+    count is the least any input needs."""
+    P, G = spec.num_particles, spec.num_bodies
+    pt, n_g, c = P + G, len(spec.group_sizes), int(sum(spec.group_sizes))
+    f32 = i32 = 4
+    nbytes = (
+        3 * B * pt * 3 * f32  # x, prev_x, out
+        + B * pt * f32  # inv_mass
+        + B * 3 * f32  # hanger
+        + B * G * f32  # att_body_w
+        + G * i32  # att_particle
+        + c * (2 * i32 + f32)  # groups.i, groups.j, groups.rest
+        + B * c * f32  # groups.mask
+        + (n_g + 1) * i32 + n_g * f32  # groups.offset, groups.compliance
+    )
+    per_call = c * OPS_PER_CONSTRAINT_DIVISOR + G * OPS_PER_ATTACHMENT_DIVISOR + n_g * OPS_PER_GROUP_ALPHA
+    per_iter = c * OPS_PER_CONSTRAINT + G * OPS_PER_ATTACHMENT + P * OPS_PER_HOOK_TEST
+    if spec.self_min_dist > 0.0:
+        nbytes += pt * pt * f32 + B * pt * f32  # self_pair_mask, self_active
+        per_iter += pt * pt * OPS_PER_SELF_TEST + pt * OPS_PER_SELF_UPDATE
+    flops = B * (per_call + spec.iterations * per_iter) + contacts * OPS_PER_CONTACT + self_hits * OPS_PER_SELF_HIT
+    return nbytes, flops
 
 
 def pack_groups(spec: ClothSolveSpec, group_topology: Sequence[torch.Tensor], group_masks: Sequence[torch.Tensor]) -> ClothGroups:
@@ -101,9 +202,14 @@ def cloth_position_solve_ref(
     groups: ClothGroups,
     self_pair_mask: Optional[torch.Tensor] = None,  # [PT, PT]
     self_active: Optional[torch.Tensor] = None,  # [B, PT]
+    *,
+    events: Optional[Dict[str, int]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch position solve, batched over envs: the math of the
-    kernel and of `_solve_tile`, in the reference's operation order."""
+    kernel and of `_solve_tile`, in the reference's operation order. A dict
+    passed as `events` receives "contacts" (cloth particles on the hook) and
+    "self_hits" (violating self-collision pairs), summed over envs and
+    iterations: the data-dependent work that `solve_cost` counts."""
     P, G = spec.num_particles, spec.num_bodies
     dt2 = spec.dt * spec.dt
     W = inv_mass
@@ -157,6 +263,8 @@ def cloth_position_solve_ref(
         scale = torch.clamp(spec.hook_friction * (-pen) / torch.clamp(t_norm, min=1e-9), max=1.0)
         active = (phi < 0.0).to(x.dtype)
         active[:, P:] = 0.0  # pseudo-bodies have no hook contact
+        if events is not None:
+            events["contacts"] += int(active.sum().item())
         return x + active[..., None] * (-pen[..., None] * n - scale[..., None] * disp_t)
 
     def self_pass(x):
@@ -167,9 +275,14 @@ def cloth_position_solve_ref(
         viol = viol * self_active[:, :, None] * self_active[:, None, :]
         n = d / torch.clamp(dist, min=1e-9)[..., None]
         corr = viol / torch.clamp(pair_w, min=1e-12) * W[:, :, None]
-        counts = torch.clamp((viol > 0).to(x.dtype).sum(-1), min=1.0)
+        hits = (viol > 0).to(x.dtype).sum(-1)
+        if events is not None:
+            events["self_hits"] += int(hits.sum().item())
+        counts = torch.clamp(hits, min=1.0)
         return x + (corr[..., None] * n).sum(2) / counts[..., None]
 
+    if events is not None:
+        events.update(contacts=0, self_hits=0)
     x = x.clone()
     for _ in range(spec.iterations):
         for dg in dgroups:
@@ -192,9 +305,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device:
         raise ValueError(f"{name} must be contiguous")
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
+# the C entry both kernel files export (`CLOTH_SOLVE_C_ENTRY` in
+# `csrc/cloth_solve_common.cuh`): 15 pointers, 6 ints, 5 floats, the stream
+KERNEL_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
 
 
 def _kernel_fn(name: str):
@@ -203,8 +316,7 @@ def _kernel_fn(name: str):
 
     fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 15 + [_I] * 6 + [_F] * 5 + [_P]
-        fn.restype = _I
+        fn.argtypes, fn.restype = KERNEL_ARGTYPES, ctypes.c_int
     return fn
 
 
@@ -221,9 +333,11 @@ def _kernel_operands(
     self_pair_mask: Optional[torch.Tensor] = None,
     self_active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, list]:
-    """Check device, dtype (f32 / i32), shape and contiguity of every operand,
-    raising on anything the kernels do not take; return the output tensor and
-    the argument list both C entry points share."""
+    """Check the kernels' limits and the device, dtype (f32 / i32), shape and
+    contiguity of every operand, raising on anything the kernels do not take;
+    return the output tensor and the argument list both C entry points
+    share."""
+    check_kernel_limits(spec)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -245,6 +359,7 @@ def _kernel_operands(
     _check("groups.mask", groups.mask, f32, (B, c_total), dev)
     _check("groups.offset", groups.offset, i32, (n_g + 1,), dev)
     _check("groups.compliance", groups.compliance, f32, (n_g,), dev)
+    _check_att_once(spec, att_particle)
     if spec.self_min_dist > 0.0:
         if self_pair_mask is None or self_active is None:
             raise ValueError("self-collision is on: self_pair_mask and self_active are required")
@@ -276,17 +391,15 @@ def _launch(name: str, out: torch.Tensor, args: list) -> torch.Tensor:
 
 
 def cloth_position_solve_cuda(spec: ClothSolveSpec, x: torch.Tensor, *operands) -> torch.Tensor:
-    """Launch `csrc/cloth_solve.cu` (K2's port, one CTA per env) on the
+    """Launch `csrc/cloth_solve.cu` (K2's port, K2's operation order) on the
     current stream. Operands as `cloth_position_solve_ref`."""
     out, args = _kernel_operands("cloth_solve", spec, x, *operands)
     return _launch("cloth_solve", out, args)
 
 
 def cloth_position_solve_env_cuda(spec: ClothSolveSpec, x: torch.Tensor, *operands) -> torch.Tensor:
-    """Launch `csrc/cloth_solve_env.cu` (K1's port, one warp per env, 4 envs
-    per CTA) on the current stream. Operands as `cloth_position_solve_ref`."""
-    if len(spec.group_sizes) > 32:
-        raise ValueError(f"cloth_solve_env takes at most 32 distance groups, got {len(spec.group_sizes)}")
+    """Launch `csrc/cloth_solve_env.cu` (K1's port, K1's operation order) on
+    the current stream. Operands as `cloth_position_solve_ref`."""
     out, args = _kernel_operands("cloth_solve_env", spec, x, *operands)
     return _launch("cloth_solve_env", out, args)
 

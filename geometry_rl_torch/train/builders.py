@@ -74,7 +74,7 @@ def build_agent(
     entropy_eq: bool = False,
     entropy_first: bool = False,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     **policy_kw,
 ) -> Trainer:
     """One call -> ready Trainer."""

@@ -30,7 +30,7 @@ STEPS = 5
 @pytest.fixture(scope="module")
 def trajectories():
     je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver="tiled")
-    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0)
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, device="cpu")
     js = je.reset(jax.random.PRNGKey(5))
     ts_state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -77,7 +77,7 @@ def test_step_outputs_match_reference(trajectories, step):
 def test_static_layout_matches_reference(hole_split):
     kw = dict(num_envs=3, warmup_steps=0, self_collision=True, hole_split=hole_split)
     je = jax_make_env("cloth_hanging", use_pallas_solver="tiled", **kw)
-    te = make_env("cloth_hanging", **kw)
+    te = make_env("cloth_hanging", **kw, device="cpu")
     np.testing.assert_array_equal(te.hole_mask.numpy(), np.asarray(je.hole_mask))
     np.testing.assert_array_equal(te.boundary_idx.numpy(), np.asarray(je.boundary_idx))
     np.testing.assert_array_equal(te.obs_edges.numpy(), np.asarray(je.obs_edges))
@@ -100,7 +100,7 @@ def test_static_layout_matches_reference(hole_split):
 def test_area_based_distortion_reward_matches_reference():
     """The triangle-area distortion variant of the reward, on one stepped state."""
     je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver="tiled", distortion_area_based=True)
-    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, distortion_area_based=True)
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, distortion_area_based=True, device="cpu")
     js = je.reset(jax.random.PRNGKey(2))
     action = np.random.default_rng(1).uniform(-1, 1, (B, 12)).astype(np.float32)
     stepped = js._replace(scene=je._physics(je._apply_action(js.scene, jnp.asarray(action)), js.hanger_pos))
@@ -115,7 +115,7 @@ def test_reset_layout_is_valid():
     """The port's reset draws its own layout (torch's generator, not JAX's
     threefry): corners sit on the gripper cubes, the hanger stays in its box,
     and the cloth keeps its rest shape under the random rigid motion."""
-    te = make_env("cloth_hanging", num_envs=8, warmup_steps=0)
+    te = make_env("cloth_hanging", num_envs=8, warmup_steps=0, device="cpu")
     s = te.reset(torch.Generator().manual_seed(1))
     pos = s.scene.particles.pos
     assert pos.shape == (8, N_PARTICLES, 3)
@@ -133,16 +133,16 @@ SOLVER_MODES = [("auto", "tiled"), ("tiled", "tiled"), (True, True)]
 
 @pytest.mark.parametrize("mode,expected", SOLVER_MODES)
 def test_solver_modes(mode, expected):
-    env = make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode)
+    env = make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode, device="cpu")
     assert env.solver_mode == expected and type(env.solver_mode) is type(expected)
     if mode != "auto":
         assert jax_make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode).solver_mode == expected
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("cloth_hanging", num_envs=1, use_pallas_solver=False)
+        make_env("cloth_hanging", num_envs=1, use_pallas_solver=False, device="cpu")
     # with the velocity-pass material "auto" means the XLA path, which is not
     # ported; an explicit kernel refuses the material
     with pytest.raises(NotImplementedError if mode == "auto" else ValueError, match="ROADMAP|velocity-pass"):
-        make_env("cloth_hanging", num_envs=1, use_pallas_solver=mode, restitution=0.5)
+        make_env("cloth_hanging", num_envs=1, use_pallas_solver=mode, restitution=0.5, device="cpu")
 
 
 @pytest.mark.parametrize("step", range(2))
@@ -164,7 +164,7 @@ def test_per_env_solver_steps_match_reference(step, per_env_trajectories):
 @pytest.fixture(scope="module")
 def per_env_trajectories():
     je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver=True)
-    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver=True)
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver=True, device="cpu")
     assert je.solver_mode is True and te.solver_mode is True
     js = je.reset(jax.random.PRNGKey(6))
     ts_state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), torch.Generator().manual_seed(0))

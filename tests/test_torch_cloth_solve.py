@@ -6,6 +6,8 @@ real cloth_hanging topology with self-collision off and on. The CUDA kernel is
 held against the plain version on the card in tests/test_torch_cuda.py.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +18,17 @@ from geometry_rl_tpu.envs import make_env as jax_make_env
 from geometry_rl_tpu.sim.pallas_cloth import cloth_position_solve, cloth_position_solve_tiled
 from geometry_rl_torch.envs import make_env
 from geometry_rl_torch.sim.cloth_solve import (
+    _ATT_CHECKED,
     LAUNCHES,
+    _check_att_once,
     check_conflict_free,
+    check_kernel_limits,
     cloth_position_solve as port_solve,
     cloth_position_solve_cuda,
+    cloth_position_solve_env_cuda,
     cloth_position_solve_ref,
     pack_groups,
+    solve_cost,
 )
 
 # the JAX package's own Pallas-vs-XLA gate (tests/test_envs_cloth.py); both
@@ -78,7 +85,7 @@ def port_operands(te, x, prev, hanger, spec=None):
 def envs(request):
     kw = dict(num_envs=B, warmup_steps=0, self_collision=request.param)
     je = jax_make_env("cloth_hanging", use_pallas_solver="tiled", **kw)
-    te = make_env("cloth_hanging", **kw)
+    te = make_env("cloth_hanging", device="cpu", **kw)
     return je, te, solve_operands(je, seed=3)
 
 
@@ -113,7 +120,7 @@ def test_cpu_tensors_take_the_plain_version(envs):
 
 
 def test_bad_groups_are_rejected():
-    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0)
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, device="cpu")
     topo = []
     for g in te.distance_groups:
         topo += [g.i, g.j, g.rest]
@@ -128,3 +135,99 @@ def test_bad_groups_are_rejected():
     out_of_range[0][0] = 229  # past the last pseudo-particle
     with pytest.raises(ValueError, match="indices in"):
         pack_groups(te.solve_spec, out_of_range, [g.mask for g in te.distance_groups])
+
+
+def test_kernel_limits_accept_the_cloth_env():
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, self_collision=True, device="cpu")
+    check_kernel_limits(te.solve_spec)
+    check_kernel_limits(te.solve_spec, te.corner_indices.tolist())
+
+
+def _spec_with(**change):
+    spec = make_env("cloth_hanging", num_envs=1, warmup_steps=0, device="cpu").solve_spec
+    return spec._replace(**change)
+
+
+@pytest.mark.parametrize("case", ["group_of_129", "17_groups", "257_particles", "repeated_attachment",
+                                  "attachment_on_a_gripper"])
+def test_kernel_limits_reject_what_the_kernels_do_not_take(case):
+    """Each limit of the CTA-per-env design raises before any launch, and the
+    plain version still takes the shape."""
+    corners = [0, 14, 210, 224]
+    spec, att, match = {
+        "group_of_129": (_spec_with(group_sizes=(105, 129)), corners, "128 constraints"),
+        "17_groups": (_spec_with(group_sizes=(8,) * 17, group_compliance=(0.0,) * 17), corners, "16 distance groups"),
+        "257_particles": (_spec_with(num_particles=253), corners, "256 particles"),
+        "repeated_attachment": (_spec_with(), [0, 14, 14, 224], "distinct cloth indices"),
+        "attachment_on_a_gripper": (_spec_with(), [0, 14, 210, 225], "distinct cloth indices"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        check_kernel_limits(spec, att)
+
+
+@pytest.mark.parametrize("solve", [cloth_position_solve_cuda, cloth_position_solve_env_cuda])
+def test_wrappers_check_limits_first(solve):
+    """Each wrapper refuses a spec outside the kernels' limits before it
+    looks at the tensors, so a CUDA tensor never reaches the launch with it;
+    with a spec inside them, CPU tensors are refused for their device."""
+    te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, device="cpu")
+    je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver="tiled")
+    spec, *rest = port_operands(te, *solve_operands(je, seed=1))
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    with pytest.raises(ValueError, match="16 distance groups"):
+        solve(spec._replace(group_sizes=(8,) * 17), *rest)
+    with pytest.raises(ValueError, match="CUDA"):
+        solve(spec, *rest)
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+
+
+def test_plain_version_counts_contacts_and_self_hits(envs):
+    """`events` reports the data-dependent work without changing the result:
+    particles on the hook, and violating pairs only with self-collision on."""
+    _, te, (x, prev, hanger) = envs
+    events = {"contacts": -1}
+    out = cloth_position_solve_ref(*port_operands(te, x, prev, hanger), events=events)
+    assert torch.equal(out, cloth_position_solve_ref(*port_operands(te, x, prev, hanger)))
+    spec = te.solve_spec
+    assert 0 < events["contacts"] < B * spec.iterations * spec.num_particles  # the hook through the centre
+    assert (events["self_hits"] > 0) == (spec.self_min_dist > 0)
+    off_hook = {}
+    cloth_position_solve_ref(*port_operands(te, x, prev, hanger, spec._replace(hook_radius=0.0)), events=off_hook)
+    assert off_hook["contacts"] == 0
+
+
+def test_attachment_check_is_cached_per_tensor_and_dropped_with_it():
+    spec = _spec_with()
+    att = torch.tensor([0, 14, 210, 224], dtype=torch.int32)
+    _check_att_once(spec, att)
+    key = id(att)
+    assert _ATT_CHECKED[key] == att._version
+    att[2] = 14  # an in-place change is checked again
+    with pytest.raises(ValueError, match="distinct cloth indices"):
+        _check_att_once(spec, att)
+    del att
+    gc.collect()
+    assert key not in _ATT_CHECKED
+
+
+@pytest.mark.parametrize("self_collision", [False, True], ids=["no_self_collision", "self_collision"])
+def test_solve_cost_counts_every_operand_once(self_collision):
+    """`solve_cost` at B = 100: the bytes of every operand the kernels read
+    and of the output, to the byte; the operations every iteration does, and
+    those of the contacts and self-collision hits it is given."""
+    te = make_env("cloth_hanging", num_envs=100, warmup_steps=0, self_collision=self_collision, device="cpu")
+    spec, g = te.solve_spec, te.groups
+    x = torch.zeros((100, 229, 3))
+    operands = [x, x, te.inv_all, torch.zeros((100, 3)), te.att_body_w, te.corner_indices,
+                g.i, g.j, g.rest, g.mask, g.offset, g.compliance, x]  # x, prev_x, ..., out
+    if self_collision:
+        operands += [te.self_pair_mask_full, te.self_active_full]
+    nbytes, flops = solve_cost(spec, 100)
+    assert nbytes == sum(t.numel() * t.element_size() for t in operands)
+    if not self_collision:
+        assert nbytes == 1_414_140
+    c, P, G, PT, n_g = 1202, 225, 4, 229, 12
+    assert len(spec.group_sizes) == n_g
+    per_iter = 31 * c + 29 * G + 14 * P + ((18 * PT * PT + 7 * PT) if self_collision else 0)
+    assert flops == 100 * (3 * c + 2 * G + n_g + 10 * per_iter)
+    assert solve_cost(spec, 100, contacts=5, self_hits=7) == (nbytes, flops + 5 * 42 + 7 * 13)

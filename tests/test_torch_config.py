@@ -1,11 +1,15 @@
 """The port's config loader against the JAX package's, on every shared YAML,
 and `trainer_from_config`'s reading of it."""
 
+import inspect
+
 import pytest
 import torch
 
 from geometry_rl_tpu import config as jax_config
 from geometry_rl_torch import config
+from geometry_rl_torch.envs import ClothEnv, make_env
+from geometry_rl_torch.train.builders import build_agent
 
 
 @pytest.mark.parametrize("name", jax_config.available_configs())
@@ -27,10 +31,28 @@ def test_trainer_from_config_reads_the_config():
         "env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 6},
         "algorithm": {"latent_dim": 8, "num_ori": 4, "dtype": "float32"},
     })
-    tr = config.trainer_from_config(cfg)
+    tr = config.trainer_from_config(cfg, device="cpu")
     assert tr.env.cfg.num_envs == 2 and tr.cfg.steps_per_batch == 3
     assert tr.cfg.mini_batch_size == 200 and tr.cfg.total_iterations == 5_000_000 // 6
     hepi = tr.policy.backbone
     assert hepi.dtype == torch.float32 and hepi.num_ori == 4 and hepi.node_encoder.out_features == 8
     with pytest.raises(NotImplementedError):
-        config.trainer_from_config(config.load_config("rigid_insertion_multi_hepi_trpl"))
+        config.trainer_from_config(config.load_config("rigid_insertion_multi_hepi_trpl"), device="cpu")
+
+
+@pytest.mark.parametrize("entry", [config.trainer_from_config, build_agent, make_env, ClothEnv.__init__],
+                         ids=["trainer_from_config", "build_agent", "make_env", "ClothEnv"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The programmatic entry points run on the card unless the caller asks
+    for the CPU; with no card they raise instead of falling back."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.load_config("cloth_hanging_multi_hepi_trpl", overrides={"env": {"num_envs": 2}})
+    call = {
+        "trainer_from_config": lambda: config.trainer_from_config(cfg),
+        "build_agent": lambda: build_agent("cloth_hanging", "hepi", num_envs=2),
+        "make_env": lambda: make_env("cloth_hanging", num_envs=2),
+        "__init__": lambda: ClothEnv(make_env("cloth_hanging", num_envs=2, device="cpu").cfg),
+    }[entry.__name__]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -18,7 +18,7 @@ from geometry_rl_torch.sim.cloth_solve import (
 )
 
 ATOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate for the cloth solve
-# K2's port (one CTA per env) and K1's (one warp per env)
+# K2's port and K1's: one design (csrc/cloth_solve_common.cuh), two operation orders
 KERNELS = {"cloth_solve": cloth_position_solve_cuda, "cloth_solve_env": cloth_position_solve_env_cuda}
 
 
@@ -56,7 +56,7 @@ def folded_operands(env, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("num_envs,self_collision", [(100, False), (4, True)])
+@pytest.mark.parametrize("num_envs,self_collision", [(100, False), (1000, False), (4, True)])
 def test_cuda_kernel_matches_plain_version(cuda_device, num_envs, self_collision, kernel):
     env = make_env("cloth_hanging", num_envs=num_envs, warmup_steps=0, self_collision=self_collision, device=cuda_device)
     args = folded_operands(env, seed=3)
@@ -65,6 +65,29 @@ def test_cuda_kernel_matches_plain_version(cuda_device, num_envs, self_collision
     torch.cuda.synchronize()
     assert LAUNCHES == {**before, kernel: before[kernel] + 1}
     assert (out - cloth_position_solve_ref(*args)).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_envs,self_collision", [(100, False), (4, True)])
+def test_k1_port_matches_k2_port(cuda_device, num_envs, self_collision):
+    """The two instantiations differ only in operation order."""
+    env = make_env("cloth_hanging", num_envs=num_envs, warmup_steps=0, self_collision=self_collision, device=cuda_device)
+    args = folded_operands(env, seed=5)
+    k1, k2 = cloth_position_solve_env_cuda(*args), cloth_position_solve_cuda(*args)
+    assert (k1 - k2).abs().max().item() <= ATOL
+    assert (k2 - args[1]).abs().max().item() > 1e-2  # the solve really moved the state
+
+
+@pytest.mark.cuda
+def test_main_path_kernels_do_not_spill(cuda_device):
+    """What ptxas reported when it built the libraries: the instantiations the
+    main paths launch (self-collision off) keep everything in registers."""
+    from geometry_rl_torch.cuda_build import BUILD_INFO, load_library
+
+    for lib, kernel in (("cloth_solve", "cloth_solve_kernel"), ("cloth_solve_env", "cloth_solve_env_kernel")):
+        load_library(lib)
+        info = BUILD_INFO[lib][kernel]
+        assert info["registers"] > 0 and info["spill_store_bytes"] == 0 and info["spill_load_bytes"] == 0, info
 
 
 @pytest.mark.cuda
@@ -81,6 +104,8 @@ def test_cuda_kernel_rejects_bad_operands(cuda_device, kernel):
         solve(spec, x, rest[0].cpu(), *rest[1:])
     with pytest.raises(ValueError, match="particles"):
         solve(spec, x[:, :-1].contiguous(), *rest)
+    with pytest.raises(ValueError, match="distinct cloth indices"):
+        solve(spec, x, *rest[:4], torch.tensor([0, 14, 14, 224], dtype=torch.int32, device=cuda_device), *rest[5:])
 
 
 @pytest.mark.cuda

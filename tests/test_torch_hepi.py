@@ -54,7 +54,7 @@ def agents():
     norm = obs_norm_update(obs_norm_update(obs_norm_init(jtr.env.obs_spec.group_dim("scalars")), state.obs), ts.obs)
     tobs = np_tree(obs_norm_apply(norm, ts.obs))
 
-    ttr = build_agent("cloth_hanging", "hepi", env_kwargs=dict(warmup_steps=0), **SMALL)
+    ttr = build_agent("cloth_hanging", "hepi", env_kwargs=dict(warmup_steps=0), device="cpu", **SMALL)
     ttr.policy.load_state_dict(params_from_flax(np_tree(state.actor_params)))
     ttr.critic.load_state_dict(params_from_flax(np_tree(state.critic_params)))
     return jtr, state, tobs, ttr

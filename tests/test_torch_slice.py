@@ -53,7 +53,7 @@ def rollouts():
     norm = obs_norm_update(js.norm, js.obs)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
 
-    ttr = build_agent("cloth_hanging", "hepi", env_kwargs=dict(warmup_steps=0), **SMALL)
+    ttr = build_agent("cloth_hanging", "hepi", env_kwargs=dict(warmup_steps=0), device="cpu", **SMALL)
     ttr.policy.load_state_dict(params_from_flax(np_tree(js.actor_params)))
     t_norm = obs_norm_from_jax(np_tree(norm))
     t_env = cloth_state_from_jax(np_tree(js.env_state), torch.Generator().manual_seed(0))
@@ -97,7 +97,7 @@ def test_rollout_and_eval_run_on_cpu():
         "env": {"num_envs": 2, "kwargs": {"warmup_steps": 1, "episode_length": 3}},
         "collector": {"frames_per_batch": 8}, "algorithm": {"latent_dim": 8, "num_ori": 4},
     })
-    trainer = trainer_from_config(cfg)
+    trainer = trainer_from_config(cfg, device="cpu")
     LAUNCHES["cloth_solve"] = 0
     state = trainer.init(torch.Generator().manual_seed(0))
     gen_state = state.generator.get_state()
@@ -131,7 +131,7 @@ def test_port_imports_no_jax(tmp_path):
         "cfg = load_config('cloth_hanging_multi_hepi_trpl', overrides={'env': {'num_envs': 2, 'kwargs': "
         "{'warmup_steps': 1}}, 'collector': {'frames_per_batch': 4}, 'algorithm': {'latent_dim': 8, 'num_ori': 4, "
         "'objective': {'mini_batch_size': 2}}})\n"
-        "tr = trainer_from_config(cfg)\n"
+        "tr = trainer_from_config(cfg, device='cpu')\n"
         "state, batch, _ = tr._collect(tr.init(torch.Generator().manual_seed(0)))\n"
         "assert batch.action.shape == (2, 2, 12)\n"
         "state, metrics = tr.train_iteration(state)\n"

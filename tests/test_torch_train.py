@@ -56,7 +56,8 @@ def ref():
                           env_kwargs=dict(warmup_steps=0, use_pallas_solver=False), **SMALL)
     js = jax.jit(jtr.init)(jax.random.PRNGKey(1))  # jitted: 4x faster than op by op on the CPU
     js, jbatch, _ = jax.jit(jtr._collect)(js)
-    ttr = build_agent("cloth_hanging", "hepi", train_cfg=TrainConfig(**CFG), env_kwargs=dict(warmup_steps=0), **SMALL)
+    ttr = build_agent("cloth_hanging", "hepi", train_cfg=TrainConfig(**CFG), env_kwargs=dict(warmup_steps=0), device="cpu",
+                      **SMALL)
     return jtr, js, jbatch, ttr
 
 
@@ -194,7 +195,7 @@ NOISE_STD_RTOL = 0.05  # the sample std of >= 4,600 normals is within ~1% (1 sig
 @pytest.fixture(scope="module")
 def noisy():
     return build_agent("cloth_hanging", "hepi", train_cfg=TrainConfig(**CFG), env_kwargs=dict(warmup_steps=0),
-                       training_noise=True, training_noise_std=NOISE_STD, **SMALL)
+                       training_noise=True, training_noise_std=NOISE_STD, device="cpu", **SMALL)
 
 
 def flat_tobs(jbatch):
