@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging HEPi paths on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging and rigid_insertion HEPi paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -39,6 +39,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
   8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
      envs, f32, the same batch, params and permutation: first-minibatch
      gradients within 1e-4 of their global norm, params within 1e-5.
+  9. the rigid_insertion rollout on a small input (4 envs, f32): 3
+     deterministic steps on the card against the CPU, actions, rewards and
+     body positions within SLICE_TOL of their scale.
+ 10. rigid_insertion training at full width through the CLI
+     (rigid_insertion_multi_hepi_trpl: 1000 envs x 100 steps, latent 64, 16
+     orientations, bf16 activations, 5 epochs x 100 minibatches of 1000; one
+     iteration): the checks of phase 6, and neither cloth kernel launches.
+     Seconds per iteration, collect and update apart, and collect env-steps/s.
+ 11. `train.play` on that run, as phase 7.
+ 12. `torch.profiler` over 2 control steps of the rigid_insertion collect at
+     1000 envs: device kernels per control step, device busy ms and idle
+     share, the device time under the env step, the policy and the critic,
+     and the 5 ops and 5 kernels with the most device time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -73,6 +86,8 @@ SLICE_TOL = 1e-4
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
 LIBRARIES = ("cloth_solve", "cloth_solve_env")
+# the paper's headline configuration: 1000 envs x 100 steps per iteration
+RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
 # the instantiation each library launches on the main paths (self-collision off)
 MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel"}
 # the reference's per-iteration metric keys (TRPL loss and constraint metrics,
@@ -179,9 +194,12 @@ def solve_inputs(env, generator):
             env.groups, env.self_pair_mask_full, env.self_active_full)
 
 
-def train_phase(card: str):
-    """Phase 6: two full-width training iterations through the CLI with K1's
-    port as the solve. Returns the run dir and K1's launch count."""
+def train_phase(card: str, config: str, overrides, expected: dict):
+    """Full-width training through the CLI (`config` with `overrides`, on the
+    card): the cloth kernels must launch exactly `expected` times, every
+    metrics row is finite with the reference's keys, the params move, and the
+    last checkpoint restores bit-exactly into a fresh trainer. Returns the
+    run dir and the launch counts."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
@@ -191,22 +209,19 @@ def train_phase(card: str):
 
     t_phase = time.perf_counter()
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    overrides = ["env.kwargs.use_pallas_solver=true", "collector.total_frames=20000",
-                 "logger.checkpoint.save_interval=1", f"logger.log_dir={log_dir}"]
-    cfg = load_config("cloth_hanging_multi_hepi_trpl", cli.parse_overrides(overrides))
+    overrides = [*overrides, "logger.checkpoint.save_interval=1", f"logger.log_dir={log_dir}"]
+    cfg = load_config(config, cli.parse_overrides(overrides))
     B, T = cfg["env"]["num_envs"], cfg["collector"]["frames_per_batch"] // cfg["env"]["num_envs"]
     iterations = cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]
-    expected = 2 * (cfg["env"]["kwargs"].get("warmup_steps", 10) + iterations * T)  # decimation 2
     LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
     torch.cuda.synchronize()
-    run_dir = cli.main(["--config", "cloth_hanging_multi_hepi_trpl", "--device", "cuda", "--override", *overrides])
+    run_dir = cli.main(["--config", config, "--device", "cuda", "--override", *overrides])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    print(f"[train] cloth_hanging HEPi, use_pallas_solver=true: {iterations} iterations of {B} envs x {T} steps; "
-          f"cloth_solve_env launches {launches['cloth_solve_env']} (expected {expected}), "
-          f"cloth_solve launches {launches['cloth_solve']} (expected 0)")
-    if launches != {"cloth_solve": 0, "cloth_solve_env": expected}:
-        fail(f"the training path launched {launches}, expected cloth_solve_env {expected} and cloth_solve 0")
+    print(f"[train] {config}: {iterations} iterations of {B} envs x {T} steps; cloth kernel launches {launches} "
+          f"(expected {expected})")
+    if launches != expected:
+        fail(f"the training path of {config} launched {launches}, expected {expected}")
 
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
@@ -218,10 +233,10 @@ def train_phase(card: str):
         bad = [k for k, v in row.items() if not (isinstance(v, (int, float)) and abs(v) < float("inf"))]
         if bad:
             fail(f"metrics.jsonl row {row['step']} has non-finite {bad}")
-        print(f"[train] iteration {row['step']}: {row['train/iteration_time']:.3f} s = collect "
-              f"{row['train/collect_time']:.3f} s + update {row['train/update_time']:.3f} s on {card}; "
-              f"reward {row['train/reward']:.3f}, kl {row['kl']:.5f}, ESS {row['ESS']:.4f}, "
-              f"explained variance {row['train/explained_variance']:.4f}")
+        print(f"[train] {config} iteration {row['step']}: {row['train/iteration_time']:.3f} s = collect "
+              f"{row['train/collect_time']:.3f} s ({B * T / row['train/collect_time']:.1f} env-steps/s) + update "
+              f"{row['train/update_time']:.3f} s on {card}; reward {row['train/reward']:.3f}, kl {row['kl']:.5f}, "
+              f"ESS {row['ESS']:.4f}, explained variance {row['train/explained_variance']:.4f}")
 
     # a fresh trainer: its own init params, then the last checkpoint bit-exactly
     ckpt_dir = os.path.join(run_dir, "checkpoints")
@@ -260,7 +275,7 @@ def train_phase(card: str):
     print(f"[train] checkpoint {step} restored bit-exactly into a fresh trainer (params, Adam states, normaliser, "
           f"env state, generators, num_updates {state.num_updates}); policy params moved up to {moved:.3e} "
           f"from init; phase took {time.perf_counter() - t_phase:.2f} s")
-    return run_dir, launches["cloth_solve_env"]
+    return run_dir, launches
 
 
 def update_parity_phase() -> None:
@@ -317,6 +332,129 @@ def update_parity_phase() -> None:
         fail(f"the card's gradients disagree with the CPU's: {grad_err}")
     if not param_err <= PARAM_TOL:
         fail(f"the card's params after the update disagree with the CPU's: {param_err}")
+
+
+def parity_phase(card: str, config: str, what: str, positions) -> None:
+    """The slice of `config` on a small input (4 envs, f32): 3 deterministic
+    steps on the card against the same steps on the CPU, from the same state,
+    normaliser and params; actions, rewards and `positions(env_state)` within
+    SLICE_TOL of each quantity's scale."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.rl.obs_pipeline import obs_norm_step
+
+    t_phase = time.perf_counter()
+    small = load_config(config, overrides={
+        "env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}, "algorithm": {"dtype": "float32"},
+    })
+    gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
+    g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu.policy.load_state_dict(gpu.policy.state_dict())
+    env_state, norm_g = g_state.env_state, g_state.norm
+    c_state = moved(env_state, "cpu")._replace(generator=torch.Generator().manual_seed(0))
+    norm_c = moved(norm_g, "cpu")
+
+    worst = {"action": 0.0, "reward": 0.0, what: 0.0}
+    with torch.no_grad():
+        for _ in range(3):
+            _, tobs_g = obs_norm_step(norm_g, gpu.env.observe(env_state), update=False)
+            _, tobs_c = obs_norm_step(norm_c, cpu.env.observe(c_state), update=False)
+            a_g, a_c = gpu._policy_dist(tobs_g).mean, cpu._policy_dist(tobs_c).mean
+            env_state, ts_g = gpu.env.step(env_state, a_g)
+            c_state, ts_c = cpu.env.step(c_state, a_c)
+            pairs = {"action": (a_g, a_c), "reward": (ts_g.reward, ts_c.reward),
+                     what: (positions(env_state), positions(c_state))}
+            for name, (g, c) in pairs.items():
+                rel = (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item())
+                worst[name] = max(worst[name], rel)
+    print(f"[parity] {config}: 4 envs, 3 deterministic steps, card vs CPU: max |diff| / max(1, max |CPU value|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {SLICE_TOL}); phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    if not max(worst.values()) <= SLICE_TOL:
+        fail(f"the {config} slice on the card disagrees with the CPU: {worst}")
+
+
+def play_phase(card: str, run_dir: str) -> None:
+    """`train.play` on a run: 100 steps, success threshold 0.1; the run dir
+    is removed after."""
+    from geometry_rl_torch.train import play
+
+    t_phase = time.perf_counter()
+    results = play.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes-steps", "100",
+                         "--success-threshold", "0.1", "--device", "cuda"])
+    for key, entry in results.items():
+        if not (entry["reward"] == entry["reward"] and 0.0 <= entry["success_rate"] <= 1.0):
+            fail(f"play result for checkpoint {key} is not finite: {entry}")
+    print(f"[play] {os.path.basename(run_dir)}: {len(results)} checkpoints, 100 steps each: {results}; "
+          f"phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    shutil.rmtree(os.path.dirname(run_dir))
+
+
+def rigid_profile_phase(card: str, steps: int = 2) -> None:
+    """`torch.profiler` over `steps` control steps of the rigid_insertion
+    collect at full width (after a warm-up collect of as many steps): device
+    kernels per control step, device busy ms and idle share of the window's
+    wall time, the device time under the env step, the policy and the
+    critic, and the ops and kernels with the most device time."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(RIGID_CONFIG)
+    cfg["collector"]["frames_per_batch"] = steps * cfg["env"]["num_envs"]
+    trainer = trainer_from_config(cfg, device="cuda")
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    state, _, _ = trainer._collect(state)  # warm-up
+    torch.cuda.synchronize()
+
+    ranges = {"env.step": (trainer.env, "step"), "policy": (trainer, "_policy_dist"), "critic": (trainer, "_value")}
+    for label, (obj, attr) in ranges.items():
+        def ranged(*a, _fn=getattr(obj, attr), _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        setattr(obj, attr, ranged)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer._collect(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for obj, attr in ranges.values():
+        delattr(obj, attr)
+    events = prof.events()
+    annotations = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and getattr(e, "is_user_annotation", False)} | set(ranges)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in annotations]
+    if not kernels:
+        fail("the profiler recorded no device kernels in the rigid collect")
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"[profile] rigid_insertion collect, {cfg['env']['num_envs']} envs, {steps} control steps after a warm-up: "
+          f"{1e3 * wall:.1f} ms wall, {len(kernels) / steps:.0f} device kernels per control step, device busy "
+          f"{busy_ms:.1f} ms, idle {100 - 100 * busy_ms / 1e3 / wall:.1f}% of the wall; on {card}")
+    for label in ranges:
+        spans = [e for e in events if e.name == label and e.device_type == torch.autograd.DeviceType.CPU]
+        dev_ms = sum(e.device_time_total for e in spans) / 1e3
+        host_ms = sum(e.time_range.elapsed_us() for e in spans) / 1e3
+        print(f"[profile]   {label}: {len(spans) // steps} calls per control step, {dev_ms:.2f} ms of device time "
+              f"({100 * dev_ms / busy_ms:.1f}% of busy), {host_ms:.1f} ms of host time")
+
+    def self_device_us(avg):
+        return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0.0)
+    ops = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CPU
+                  and a.key not in annotations), key=lambda a: -self_device_us(a))
+    for a in ops[:5]:
+        print(f"[profile]   op {a.key}: {self_device_us(a) / 1e3:.2f} ms of device time, {a.count // steps} calls "
+              f"per control step")
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
+        print(f"[profile]   kernel {t / 1e3:8.2f} ms {c // steps:6d}x per control step  {name[:100]}")
+    print(f"[profile] phase took {time.perf_counter() - t_phase:.2f} s")
 
 
 def main() -> int:
@@ -451,54 +589,33 @@ def main() -> int:
         fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
 
     # ---- 5. the slice on a small input against the CPU --------------------
-    t_phase = time.perf_counter()
-    small = load_config("cloth_hanging_multi_hepi_trpl", overrides={
-        "env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}, "algorithm": {"dtype": "float32"},
-    })
-    gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
-    g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
-    cpu.policy.load_state_dict(gpu.policy.state_dict())
-    env_state, norm_g = g_state.env_state, g_state.norm
-    c_state = moved(env_state, "cpu")._replace(generator=torch.Generator().manual_seed(0))
-    norm_c = moved(norm_g, "cpu")
-    from geometry_rl_torch.rl.obs_pipeline import obs_norm_step
-
-    worst = {"action": 0.0, "reward": 0.0, "particles": 0.0}
-    with torch.no_grad():
-        for _ in range(3):
-            _, tobs_g = obs_norm_step(norm_g, gpu.env.observe(env_state), update=False)
-            _, tobs_c = obs_norm_step(norm_c, cpu.env.observe(c_state), update=False)
-            a_g, a_c = gpu._policy_dist(tobs_g).mean, cpu._policy_dist(tobs_c).mean
-            env_state, ts_g = gpu.env.step(env_state, a_g)
-            c_state, ts_c = cpu.env.step(c_state, a_c)
-            pairs = {"action": (a_g, a_c), "reward": (ts_g.reward, ts_c.reward),
-                     "particles": (env_state.scene.particles.pos, c_state.scene.particles.pos)}
-            for name, (g, c) in pairs.items():
-                rel = (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item())
-                worst[name] = max(worst[name], rel)
-    print("[parity] 4 envs, 3 deterministic steps, card vs CPU: max |diff| / max(1, max |CPU value|): "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (tol {SLICE_TOL}); phase took {time.perf_counter() - t_phase:.2f} s")
-    if not max(worst.values()) <= SLICE_TOL:
-        fail(f"the slice on the card disagrees with the CPU: {worst}")
+    parity_phase(card, "cloth_hanging_multi_hepi_trpl", "particles", lambda s: s.scene.particles.pos)
 
     # ---- 6. training at full width through the CLI -------------------------
-    run_dir, env_launches = train_phase(card)
+    # K1's port: 2 substeps x (10 warmup steps + 2 iterations x 100 steps)
+    run_dir, cloth_launches = train_phase(
+        card, "cloth_hanging_multi_hepi_trpl", ["env.kwargs.use_pallas_solver=true", "collector.total_frames=20000"],
+        {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 2 * 100)},
+    )
+    env_launches = cloth_launches["cloth_solve_env"]
 
     # ---- 7. play on that run -------------------------------------------------
-    t_phase = time.perf_counter()
-    from geometry_rl_torch.train import play
-
-    results = play.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes-steps", "100",
-                         "--success-threshold", "0.1", "--device", "cuda"])
-    for key, entry in results.items():
-        if not (entry["reward"] == entry["reward"] and 0.0 <= entry["success_rate"] <= 1.0):
-            fail(f"play result for checkpoint {key} is not finite: {entry}")
-    print(f"[play] {len(results)} checkpoints, 100 steps each: {results}; phase took {time.perf_counter() - t_phase:.2f} s")
-    shutil.rmtree(os.path.dirname(run_dir))
+    play_phase(card, run_dir)
 
     # ---- 8. one update phase on the card against the CPU ---------------------
     update_parity_phase()
+
+    # ---- 9. the rigid_insertion rollout on a small input against the CPU ---
+    parity_phase(card, RIGID_CONFIG, "body positions", lambda s: s.scene.bodies.pos)
+
+    # ---- 10. rigid_insertion training at full width through the CLI -------
+    run_dir, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"], {"cloth_solve": 0, "cloth_solve_env": 0})
+
+    # ---- 11. play on that run -------------------------------------------------
+    play_phase(card, run_dir)
+
+    # ---- 12. where the rigid collect's device time goes -----------------------
+    rigid_profile_phase(card)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",

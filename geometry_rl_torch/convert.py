@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .envs.cloth import ClothEnvState
+from .envs.rigid import RigidEnvState
 from .rl.normalizer import VecNormState
 from .rl.obs_pipeline import ObsNormState
 from .sim.types import ParticleState, RigidBodyState, SceneState
@@ -63,6 +64,21 @@ def cloth_state_from_jax(state, generator: torch.Generator, device=None) -> Clot
             particles=ParticleState(*(t(a) for a in scene.particles)),
         ),
         hanger_pos=t(state.hanger_pos),
+        episode_step=t(state.episode_step, torch.int32),
+        generator=generator,
+        prev_action=t(state.prev_action),
+    )
+
+
+def rigid_state_from_jax(state, generator: torch.Generator, device=None) -> RigidEnvState:
+    """The reference's `RigidEnvState` (numpy leaves) -> the port's. The JAX
+    key is dropped; `generator` draws the port's fresh poses."""
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return RigidEnvState(
+        scene=SceneState(bodies=RigidBodyState(*(t(a) for a in state.scene.bodies))),
         episode_step=t(state.episode_step, torch.int32),
         generator=generator,
         prev_action=t(state.prev_action),

@@ -34,6 +34,7 @@ def _full_pairs(n: int, m: int, exclude_diag: bool, device) -> Tuple[torch.Tenso
 class ClothGraphBuilder:
     num_scalar_features = len(ONE_HOT["grippers"])
     num_vector_features = 3
+    graph_levels = ("internal", "agent", "task")  # the edge levels of its graphs
 
     def __init__(
         self,

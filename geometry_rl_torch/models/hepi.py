@@ -36,6 +36,7 @@ class HEPi(nn.Module):
         edge_levels: Sequence[str] = ("internal", "agent", "task"),
         message_codes: Sequence[Sequence[int]] = ((1, 0), (0, 1), (0, 1)),
         only_upper_hemisphere: bool = True,
+        graph_levels: Optional[Sequence[str]] = None,
         basis_dim: Optional[int] = None,
         widening_factor: int = 4,
         dtype=torch.float32,
@@ -51,9 +52,11 @@ class HEPi(nn.Module):
         self.basis_fn = PolynomialBasis(2, hidden_dim, basis_dim, degree, dtype=dtype, device=device)
         self.fiber_basis_fn = PolynomialBasis(1, hidden_dim, basis_dim, degree, dtype=dtype, device=device)
         self.node_encoder = Dense(in_scalars + in_vectors, latent_dim, bias=False, dtype=dtype, device=device)
+        # a conv per (round, level) that the input graphs have edges of
+        # (None: every level), as the reference gets params for the convs it calls
         for k in range(num_messages):
             for li, level in enumerate(self.edge_levels):
-                if message_codes[li][k] == 1:
+                if message_codes[li][k] == 1 and (graph_levels is None or level in graph_levels):
                     self.add_module(
                         f"processor_{k}_{level}",
                         FiberBundleConv(latent_dim, basis_dim, widening_factor, dtype=dtype, device=device),

@@ -44,6 +44,18 @@ class RigidBodySpec(NamedTuple):
     free_rot: torch.Tensor  # [NB, 3]
 
 
+class FixedJointSpec(NamedTuple):
+    """Fixed joints welding body pairs: each drives world(body_a, local_pos_a)
+    onto world(body_b, local_pos_b) and locks the relative orientation
+    `rel_quat` (q_rel = conj(q_a) * q_b at attach time)."""
+
+    body_a: torch.Tensor  # [NJ] int body indices
+    body_b: torch.Tensor  # [NJ]
+    local_pos_a: torch.Tensor  # [NJ, 3]
+    local_pos_b: torch.Tensor  # [NJ, 3]
+    rel_quat: torch.Tensor  # [NJ, 4] or [B, NJ, 4]
+
+
 def box_inertia(mass: float, size, device=None) -> torch.Tensor:
     """Diagonal inertia of a solid box with full extents `size`."""
     sx, sy, sz = size

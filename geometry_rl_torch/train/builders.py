@@ -1,6 +1,6 @@
 """Agent builders (port of `geometry_rl_tpu/train/builders.py` for the
-ported combination: cloth_hanging + HEPi policy + DeepSets critic + the
-projection of the algorithm)."""
+ported combinations: the cloth_hanging and rigid tasks + HEPi policy +
+DeepSets critic + the projection of the algorithm)."""
 
 from __future__ import annotations
 
@@ -10,19 +10,23 @@ import torch
 
 from ..envs import make_env
 from ..envs.cloth import ClothEnv
+from ..envs.rigid import RigidEnv
 from ..graphs.cloth import ClothGraphBuilder
+from ..graphs.rigid import RigidGraphBuilder
 from ..models import DeepSets, DiagGaussianPolicy, GraphValueNet, HEPi
 from ..rl.projections import get_projection_layer
 from .ppo import TrainConfig, Trainer
 
 
 def make_graph_builder(env, dist_as_pos: bool, model: str = "", **builder_kw):
-    """The task family's data layer. `dist_as_pos=True` marks the policy
-    builder; the cloth critic additionally keeps the particle nodes.
-    builder_kw forwards training_noise / training_noise_std."""
-    if not isinstance(env, ClothEnv):
-        raise NotImplementedError(f"graph builder for {type(env).__name__} is not ported yet")
-    return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
+    """The task family's data layer, by env type. `dist_as_pos=True` marks
+    the policy builder; the cloth critic additionally keeps the particle
+    nodes. builder_kw forwards training_noise / training_noise_std."""
+    if isinstance(env, ClothEnv):
+        return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
+    if isinstance(env, RigidEnv):
+        return RigidGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
+    raise NotImplementedError(f"graph builder for {type(env).__name__} is not ported yet (ROADMAP.md Queue 1)")
 
 
 def build_policy(model_name: str, env, builder, latent_dim: int = 64, num_ori: int = 16, dtype=torch.float32,
@@ -37,7 +41,8 @@ def build_policy(model_name: str, env, builder, latent_dim: int = 64, num_ori: i
     out_vec = cfg.action_dim // cfg.num_grippers // 3
     backbone = HEPi(
         builder.num_scalar_features, builder.num_vector_features, latent_dim=latent_dim, hidden_dim=latent_dim,
-        output_dim=out_vec, output_dim_vec=out_vec, num_ori=num_ori, dtype=dtype, device=env.device,
+        output_dim=out_vec, output_dim_vec=out_vec, num_ori=num_ori, graph_levels=builder.graph_levels, dtype=dtype,
+        device=env.device,
     )
     return DiagGaussianPolicy(
         backbone, latent_dim, action_dim=cfg.action_dim, num_actuators=cfg.num_grippers,

@@ -170,3 +170,90 @@ def test_train_iteration_on_the_card_is_finite(cuda_device):
     assert state.num_updates == 5 * 4
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
+
+
+# ------------------------------------------------------------ the rigid path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["rigid_insertion", "rigid_pushing", "rigid_sliding", "rigid_insertion_two_agents"])
+def test_rigid_env_on_the_card_matches_cpu(cuda_device, task):
+    """Three steps of each rigid task on the card and on the CPU from the
+    same state and actions: body poses within 1e-5 (f32 sums in another
+    order), no cloth kernel launched."""
+    gpu = make_env(task, num_envs=8, warmup_steps=2, device=cuda_device)
+    cpu = make_env(task, num_envs=8, warmup_steps=2, device="cpu")
+    sg = gpu.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    sc = sg._replace(scene=type(sg.scene)(bodies=type(sg.scene.bodies)(*(t.cpu() for t in sg.scene.bodies))),
+                     episode_step=sg.episode_step.cpu(), prev_action=sg.prev_action.cpu(),
+                     generator=torch.Generator().manual_seed(0))
+    actions = torch.rand((3, 8, gpu.cfg.action_dim), generator=torch.Generator().manual_seed(1)) * 2.4 - 1.2
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    for a in actions:
+        sg, ts_g = gpu.step(sg, a.to(cuda_device))
+        sc, ts_c = cpu.step(sc, a)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    for got, ref in ((sg.scene.bodies.pos, sc.scene.bodies.pos), (sg.scene.bodies.quat, sc.scene.bodies.quat),
+                     (ts_g.reward, ts_c.reward)):
+        assert (got.cpu() - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_rigid_step_does_not_synchronise(cuda_device):
+    """The rigid env step reads nothing back to the host: with CUDA's sync
+    debug mode set to error, two steps (after a warm-up step) run through."""
+    env = make_env("rigid_insertion", num_envs=64, warmup_steps=0, device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    action = torch.zeros((64, env.cfg.action_dim), device=cuda_device)
+    state, _ = env.step(state, action)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, ts = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(state.scene.bodies.pos).all() and torch.isfinite(ts.reward).all()
+
+
+@pytest.mark.cuda
+def test_rigid_train_iteration_on_the_card_is_finite(cuda_device):
+    """One small rigid_insertion collect + update on the card: finite
+    metrics, params that moved, and neither cloth kernel launched."""
+    cfg = load_config("rigid_insertion_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 1, "episode_length": 4}},
+        "collector": {"frames_per_batch": 128}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 32}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert state.num_updates == 5 * 4
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
+
+
+@pytest.mark.cuda
+def test_rigid_collect_does_not_synchronise(cuda_device):
+    """The whole rigid_insertion collect (obs normaliser, graph builders,
+    HEPi, critic, action sampling, env step) after a warm-up collect, under
+    CUDA's sync debug mode set to error."""
+    cfg = load_config("rigid_insertion_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 32},
+        "algorithm": {"latent_dim": 16, "num_ori": 4},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, _, _ = trainer._collect(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, batch, _ = trainer._collect(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(batch.reward).all()

@@ -121,9 +121,9 @@ def test_rollout_and_eval_run_on_cpu():
 
 def test_port_imports_no_jax(tmp_path):
     """The port on the CPU (trainer_from_config -> init -> a 2-step _collect
-    -> train_iteration, then the training CLI and play on a tiny run with
-    `use_pallas_solver=true`) imports neither jax, flax, optax nor the JAX
-    package."""
+    -> train_iteration, then the training CLI and play on a tiny cloth run
+    with `use_pallas_solver=true` and on a tiny rigid_insertion run) imports
+    neither jax, flax, optax nor the JAX package, nor its native library."""
     code = (
         "import sys, json, torch\n"
         "from geometry_rl_torch.config import load_config, trainer_from_config\n"
@@ -141,7 +141,14 @@ def test_port_imports_no_jax(tmp_path):
         "'collector.frames_per_batch=4', 'collector.total_frames=4', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
         f"'algorithm.objective.mini_batch_size=2', 'logger.log_dir={tmp_path}'])\n"
         "play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '2', '--device', 'cpu'])\n"
-        "print(json.dumps(sorted(m for m in ('jax', 'flax', 'optax', 'geometry_rl_tpu') if m in sys.modules)))\n"
+        "run = cli.main(['--config', 'rigid_insertion_multi_hepi_trpl', '--device', 'cpu', '--override', "
+        "'env.num_envs=4', 'env.kwargs.warmup_steps=0', 'env.kwargs.episode_length=8', 'collector.frames_per_batch=16', "
+        "'collector.total_frames=16', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
+        f"'algorithm.objective.mini_batch_size=8', 'logger.log_dir={tmp_path}/rigid'])\n"
+        "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '8', "
+        "'--success-threshold', '0.1', '--device', 'cpu'])\n"
+        "assert 0.0 <= res['0']['success_rate'] <= 1.0\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'geometry_rl_tpu'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
