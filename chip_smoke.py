@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging and rigid_insertion HEPi paths on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion and rope_closing HEPi paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -52,6 +52,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
      1000 envs: device kernels per control step, device busy ms and idle
      share, the device time under the env step, the policy and the critic,
      and the 5 ops and 5 kernels with the most device time.
+ 13. the cloth env in solver mode `use_pallas_solver=False` (the XPBD
+     `step_physics` solver in plain PyTorch, grippers as real bodies) at full
+     width (100 envs): 3 control steps from the same state and actions as a
+     "tiled" env, both advancing the same state each step; particle and
+     gripper positions within 2e-4, and the `False` env launches neither
+     kernel. A second, independent plain path that holds K2's port.
+ 14. rope_closing and rope_shaping on a small input (4 envs, f32): 3
+     deterministic steps on the card against the CPU, actions, rewards, link
+     and gripper positions within SLICE_TOL of their scale.
+ 15. rope_closing training at full width through the CLI
+     (rope_closing_hepi_trpl: 200 envs x 200 steps, 40 links, latent 64, 16
+     orientations, the config's dtype, 5 epochs x 200 minibatches of 200; one
+     iteration): the checks of phase 10, and neither cloth kernel launches.
+ 16. `train.play` on that run (200 steps, threshold 0.1), as phase 11.
+ 17. `torch.profiler` over 2 control steps of the rope_closing collect at 200
+     envs, as phase 12.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -88,6 +104,8 @@ PARAM_TOL = 1e-5
 LIBRARIES = ("cloth_solve", "cloth_solve_env")
 # the paper's headline configuration: 1000 envs x 100 steps per iteration
 RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
+# the deformable-chain family: 200 envs x 200 steps per iteration, 40 links
+ROPE_CONFIG = "rope_closing_hepi_trpl"
 # the instantiation each library launches on the main paths (self-collision off)
 MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel"}
 # the reference's per-iteration metric keys (TRPL loss and constraint metrics,
@@ -334,11 +352,11 @@ def update_parity_phase() -> None:
         fail(f"the card's params after the update disagree with the CPU's: {param_err}")
 
 
-def parity_phase(card: str, config: str, what: str, positions) -> None:
+def parity_phase(card: str, config: str, positions: dict) -> None:
     """The slice of `config` on a small input (4 envs, f32): 3 deterministic
     steps on the card against the same steps on the CPU, from the same state,
-    normaliser and params; actions, rewards and `positions(env_state)` within
-    SLICE_TOL of each quantity's scale."""
+    normaliser and params; actions, rewards and each `positions[name](env_state)`
+    within SLICE_TOL of each quantity's scale."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
@@ -355,7 +373,7 @@ def parity_phase(card: str, config: str, what: str, positions) -> None:
     c_state = moved(env_state, "cpu")._replace(generator=torch.Generator().manual_seed(0))
     norm_c = moved(norm_g, "cpu")
 
-    worst = {"action": 0.0, "reward": 0.0, what: 0.0}
+    worst = {"action": 0.0, "reward": 0.0, **{name: 0.0 for name in positions}}
     with torch.no_grad():
         for _ in range(3):
             _, tobs_g = obs_norm_step(norm_g, gpu.env.observe(env_state), update=False)
@@ -364,7 +382,7 @@ def parity_phase(card: str, config: str, what: str, positions) -> None:
             env_state, ts_g = gpu.env.step(env_state, a_g)
             c_state, ts_c = cpu.env.step(c_state, a_c)
             pairs = {"action": (a_g, a_c), "reward": (ts_g.reward, ts_c.reward),
-                     what: (positions(env_state), positions(c_state))}
+                     **{name: (get(env_state), get(c_state)) for name, get in positions.items()}}
             for name, (g, c) in pairs.items():
                 rel = (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item())
                 worst[name] = max(worst[name], rel)
@@ -375,25 +393,25 @@ def parity_phase(card: str, config: str, what: str, positions) -> None:
         fail(f"the {config} slice on the card disagrees with the CPU: {worst}")
 
 
-def play_phase(card: str, run_dir: str) -> None:
-    """`train.play` on a run: 100 steps, success threshold 0.1; the run dir
-    is removed after."""
+def play_phase(card: str, run_dir: str, steps: int = 100) -> None:
+    """`train.play` on a run: `steps` steps, success threshold 0.1; the run
+    dir is removed after."""
     from geometry_rl_torch.train import play
 
     t_phase = time.perf_counter()
-    results = play.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes-steps", "100",
+    results = play.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes-steps", str(steps),
                          "--success-threshold", "0.1", "--device", "cuda"])
     for key, entry in results.items():
         if not (entry["reward"] == entry["reward"] and 0.0 <= entry["success_rate"] <= 1.0):
             fail(f"play result for checkpoint {key} is not finite: {entry}")
-    print(f"[play] {os.path.basename(run_dir)}: {len(results)} checkpoints, 100 steps each: {results}; "
+    print(f"[play] {os.path.basename(run_dir)}: {len(results)} checkpoints, {steps} steps each: {results}; "
           f"phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
     shutil.rmtree(os.path.dirname(run_dir))
 
 
-def rigid_profile_phase(card: str, steps: int = 2) -> None:
-    """`torch.profiler` over `steps` control steps of the rigid_insertion
-    collect at full width (after a warm-up collect of as many steps): device
+def profile_phase(card: str, config: str, steps: int = 2) -> None:
+    """`torch.profiler` over `steps` control steps of `config`'s collect at
+    full width (after a warm-up collect of as many steps): device
     kernels per control step, device busy ms and idle share of the window's
     wall time, the device time under the env step, the policy and the
     critic, and the ops and kernels with the most device time."""
@@ -402,7 +420,7 @@ def rigid_profile_phase(card: str, steps: int = 2) -> None:
     from geometry_rl_torch.config import load_config, trainer_from_config
 
     t_phase = time.perf_counter()
-    cfg = load_config(RIGID_CONFIG)
+    cfg = load_config(config)
     cfg["collector"]["frames_per_batch"] = steps * cfg["env"]["num_envs"]
     trainer = trainer_from_config(cfg, device="cuda")
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
@@ -429,9 +447,9 @@ def rigid_profile_phase(card: str, steps: int = 2) -> None:
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False) and e.name not in annotations]
     if not kernels:
-        fail("the profiler recorded no device kernels in the rigid collect")
+        fail(f"the profiler recorded no device kernels in the {cfg['task']} collect")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"[profile] rigid_insertion collect, {cfg['env']['num_envs']} envs, {steps} control steps after a warm-up: "
+    print(f"[profile] {cfg['task']} collect, {cfg['env']['num_envs']} envs, {steps} control steps after a warm-up: "
           f"{1e3 * wall:.1f} ms wall, {len(kernels) / steps:.0f} device kernels per control step, device busy "
           f"{busy_ms:.1f} ms, idle {100 - 100 * busy_ms / 1e3 / wall:.1f}% of the wall; on {card}")
     for label in ranges:
@@ -455,6 +473,59 @@ def rigid_profile_phase(card: str, steps: int = 2) -> None:
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
         print(f"[profile]   kernel {t / 1e3:8.2f} ms {c // steps:6d}x per control step  {name[:100]}")
     print(f"[profile] phase took {time.perf_counter() - t_phase:.2f} s")
+
+
+def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
+    """Phase 13: the cloth env's `use_pallas_solver=False` mode (step_physics
+    in plain PyTorch) against its "tiled" mode (K2's port) at full width. Both
+    solvers advance the same state each step (free-running, f32 order noise
+    grows ~3x a step through cloth contact); the `False` env must launch
+    neither kernel."""
+    import torch
+
+    from geometry_rl_torch.config import load_config
+    from geometry_rl_torch.envs import make_env
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+
+    t_phase = time.perf_counter()
+    cfg = load_config("cloth_hanging_multi_hepi_trpl")
+    B = cfg["env"]["num_envs"]
+    kw = {**(cfg["env"].get("kwargs") or {}), "num_envs": B, "device": "cuda"}
+    env_x = make_env("cloth_hanging", **{**kw, "use_pallas_solver": False})
+    env_t = make_env("cloth_hanging", **{**kw, "use_pallas_solver": "tiled"})
+    if env_x.solver_mode is not False or env_t.solver_mode != "tiled":
+        fail(f"solver modes {env_x.solver_mode!r} / {env_t.solver_mode!r}, expected False / 'tiled'")
+    before = dict(LAUNCHES)
+    state = env_x.reset(torch.Generator(device="cuda").manual_seed(7))
+    A = env_x.cfg.action_dim
+    worst = {"particles": 0.0, "grippers": 0.0}
+    moved_by, t_x, t_t = 0.0, 0.0, 0.0
+    for t in range(steps):
+        action = torch.sin(torch.arange(B * A, dtype=torch.float32, device="cuda").reshape(B, A) * 0.7 + t * 0.3)
+        pre = env_x._apply_action(state.scene, action)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sx = env_x._physics(pre, state.hanger_pos)
+        torch.cuda.synchronize()
+        t_x += time.perf_counter() - t0
+        if dict(LAUNCHES) != before:
+            fail(f"the use_pallas_solver=False env launched a cloth kernel: {dict(LAUNCHES)} from {before}")
+        t0 = time.perf_counter()
+        st = env_t._physics(pre, state.hanger_pos)
+        torch.cuda.synchronize()
+        t_t += time.perf_counter() - t0
+        before = dict(LAUNCHES)
+        worst["particles"] = max(worst["particles"], (st.particles.pos - sx.particles.pos).abs().max().item())
+        worst["grippers"] = max(worst["grippers"], (st.bodies.pos - sx.bodies.pos).abs().max().item())
+        moved_by = max(moved_by, (sx.particles.pos - pre.particles.pos).abs().max().item())
+        state = state._replace(scene=sx)
+    print(f"[cloth-xpbd] cloth_hanging {B} envs, {steps} control steps (after the reset's {env_x.cfg.warmup_steps} warm-up "
+          f"steps in mode False), mode False vs \"tiled\" from the same state each step: max |diff| particles "
+          f"{worst['particles']:.3e}, grippers {worst['grippers']:.3e} (tol {SOLVE_TOL}; a step moved particles by up to "
+          f"{moved_by:.3e}); mode False launched no cloth kernel; physics per control step {1e3 * t_x / steps:.1f} ms "
+          f"(False) vs {1e3 * t_t / steps:.2f} ms (tiled); phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    if not max(worst.values()) <= SOLVE_TOL:
+        fail(f"the cloth env's False and tiled modes disagree: {worst}")
 
 
 def main() -> int:
@@ -589,7 +660,7 @@ def main() -> int:
         fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
 
     # ---- 5. the slice on a small input against the CPU --------------------
-    parity_phase(card, "cloth_hanging_multi_hepi_trpl", "particles", lambda s: s.scene.particles.pos)
+    parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})
 
     # ---- 6. training at full width through the CLI -------------------------
     # K1's port: 2 substeps x (10 warmup steps + 2 iterations x 100 steps)
@@ -606,7 +677,7 @@ def main() -> int:
     update_parity_phase()
 
     # ---- 9. the rigid_insertion rollout on a small input against the CPU ---
-    parity_phase(card, RIGID_CONFIG, "body positions", lambda s: s.scene.bodies.pos)
+    parity_phase(card, RIGID_CONFIG, {"body positions": lambda s: s.scene.bodies.pos})
 
     # ---- 10. rigid_insertion training at full width through the CLI -------
     run_dir, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"], {"cloth_solve": 0, "cloth_solve_env": 0})
@@ -615,7 +686,24 @@ def main() -> int:
     play_phase(card, run_dir)
 
     # ---- 12. where the rigid collect's device time goes -----------------------
-    rigid_profile_phase(card)
+    profile_phase(card, RIGID_CONFIG)
+
+    # ---- 13. the cloth env's XPBD solver mode against the tiled kernel mode ---
+    cloth_xpbd_phase(card)
+
+    # ---- 14. the rope rollouts on a small input against the CPU --------------
+    rope_positions = {"links": lambda s: s.scene.particles.pos, "grippers": lambda s: s.scene.bodies.pos}
+    for rope_config in (ROPE_CONFIG, "rope_shaping_hepi_trpl"):
+        parity_phase(card, rope_config, rope_positions)
+
+    # ---- 15. rope_closing training at full width through the CLI ------------
+    run_dir, _ = train_phase(card, ROPE_CONFIG, ["collector.total_frames=40000"], {"cloth_solve": 0, "cloth_solve_env": 0})
+
+    # ---- 16. play on that run -------------------------------------------------
+    play_phase(card, run_dir, steps=200)
+
+    # ---- 17. where the rope collect's device time goes -------------------------
+    profile_phase(card, ROPE_CONFIG)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",

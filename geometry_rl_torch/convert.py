@@ -14,6 +14,7 @@ import torch
 
 from .envs.cloth import ClothEnvState
 from .envs.rigid import RigidEnvState
+from .envs.rope import RopeEnvState
 from .rl.normalizer import VecNormState
 from .rl.obs_pipeline import ObsNormState
 from .sim.types import ParticleState, RigidBodyState, SceneState
@@ -79,6 +80,27 @@ def rigid_state_from_jax(state, generator: torch.Generator, device=None) -> Rigi
 
     return RigidEnvState(
         scene=SceneState(bodies=RigidBodyState(*(t(a) for a in state.scene.bodies))),
+        episode_step=t(state.episode_step, torch.int32),
+        generator=generator,
+        prev_action=t(state.prev_action),
+    )
+
+
+def rope_state_from_jax(state, generator: torch.Generator, device=None) -> RopeEnvState:
+    """The reference's `RopeEnvState` (numpy leaves) -> the port's. The JAX
+    key is dropped; `generator` draws the port's fresh layouts."""
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    scene = state.scene
+    return RopeEnvState(
+        scene=SceneState(
+            bodies=RigidBodyState(*(t(a) for a in scene.bodies)),
+            particles=ParticleState(*(t(a) for a in scene.particles)),
+        ),
+        target_yaw=t(state.target_yaw),
+        hanger_xy=t(state.hanger_xy),
         episode_step=t(state.episode_step, torch.int32),
         generator=generator,
         prev_action=t(state.prev_action),

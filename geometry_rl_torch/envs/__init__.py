@@ -10,17 +10,18 @@ from .rigid import (  # noqa: F401
     rigid_pushing_cfg,
     rigid_sliding_cfg,
 )
+from .rope import RopeEnv, RopeEnvState, RopeTaskCfg, rope_closing_cfg, rope_shaping_cfg  # noqa: F401
 
-# the reference's other tasks, not ported yet (ROADMAP.md Queue 1 item 9)
-NOT_PORTED = ("rope_closing", "rope_shaping")
+ROPE_TASKS = {"rope_closing": rope_closing_cfg, "rope_shaping": rope_shaping_cfg}
 
 
 def make_env(task: str, num_envs: int = 40, device="cuda", **kwargs):
-    """Env factory keyed by task name (the four rigid tasks and cloth_hanging)."""
+    """Env factory keyed by task name (the four rigid tasks, the two rope
+    tasks and cloth_hanging)."""
     if task in TASK_REGISTRY:
         return RigidEnv(TASK_REGISTRY[task](num_envs=num_envs, **kwargs), device=device)
     if task == "cloth_hanging":
         return ClothEnv(cloth_hanging_cfg(num_envs=num_envs, **kwargs), device=device)
-    if task in NOT_PORTED:
-        raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
-    raise ValueError(f"Unknown task {task!r}; available: {sorted(TASK_REGISTRY) + ['cloth_hanging']}")
+    if task in ROPE_TASKS:
+        return RopeEnv(ROPE_TASKS[task](num_envs=num_envs, **kwargs), device=device)
+    raise ValueError(f"Unknown task {task!r}; available: {sorted(TASK_REGISTRY) + sorted(ROPE_TASKS) + ['cloth_hanging']}")

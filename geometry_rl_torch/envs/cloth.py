@@ -5,10 +5,13 @@ per-env hole (a particle/constraint mask over a static grid, 20 train
 placements round-robin over envs), 4 gripper cubes attached at the corners,
 and a capsule hook. Episode 100 steps, decimation 2.
 
-The position solve runs through `sim/cloth_solve.py`: for CUDA tensors the
-kernel of the solver mode (K2's port for "auto"/"tiled", K1's for True), for
-CPU tensors the plain version. The reference's XLA solver
-path (`use_pallas_solver=False`, `sim/xpbd.step_physics`) is not ported yet.
+In the kernel modes the position solve runs through `sim/cloth_solve.py`:
+for CUDA tensors the kernel of the solver mode (K2's port for "auto"/"tiled",
+K1's for True), for CPU tensors the plain version. `use_pallas_solver=False`
+(and "auto" with the velocity-pass material on) is the reference's other
+solver: `sim/xpbd.step_physics` with the grippers as real bodies, the corner
+attachments, the hook capsule as a particle contact and the optional self
+contact. It launches neither kernel, and no kernel mode ever lands in it.
 """
 
 from __future__ import annotations
@@ -22,7 +25,15 @@ import torch
 
 from ..sim.cloth_solve import ClothSolveSpec, cloth_position_solve, pack_groups
 from ..sim.types import ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
-from ..sim.xpbd import GRAVITY, BodyAttachment, DistanceGroup, ParticleSelfContact, ParticleSpec
+from ..sim.xpbd import (
+    GRAVITY,
+    BodyAttachment,
+    DistanceGroup,
+    ParticleSDFContact,
+    ParticleSelfContact,
+    ParticleSpec,
+    step_physics,
+)
 from ..utils.math import quat_apply, quat_from_euler_xyz, quat_identity, sample_uniform
 from .base import ObsSpec, TimeStep
 
@@ -106,8 +117,8 @@ class ClothTaskCfg:
     num_holes: int = 20
     hole_split: str = "train"  # train | test
     # "auto" and "tiled" solve through K2's port (csrc/cloth_solve.cu), True
-    # through K1's (csrc/cloth_solve_env.cu); False (the reference's XLA
-    # solver) is not ported yet
+    # through K1's (csrc/cloth_solve_env.cu), False through sim/xpbd.py's
+    # step_physics; "auto" with the material below on goes to False
     use_pallas_solver: object = "auto"
     episode_length: int = 100
     decimation: int = 2
@@ -183,22 +194,19 @@ class ClothEnv:
 
         mode = cfg.use_pallas_solver
         material_on = cfg.restitution > 0.0 or cfg.dynamic_friction_scale > 0.0
-        if mode is False or (mode == "auto" and material_on):
-            raise NotImplementedError(
-                "the XPBD step_physics solver (use_pallas_solver=False, and the velocity-pass "
-                "material) is not ported yet: ROADMAP.md Queue 1, 'XLA particle path'"
-            )
-        if material_on:
+        if mode not in ("auto", "tiled", True, False):
+            raise ValueError(f"use_pallas_solver must be 'auto', 'tiled', True or False, got {mode!r}")
+        if mode == "auto":
+            mode = False if material_on else "tiled"
+        elif mode and material_on:
             raise ValueError(
                 "use_pallas_solver is incompatible with the velocity-pass material "
                 "(restitution/dynamic_friction_scale): the fused kernel implements the "
-                "position solve only."
+                "position solve only. Use use_pallas_solver=false (or 'auto')."
             )
-        if mode not in ("auto", "tiled", True):
-            raise ValueError(f"use_pallas_solver must be 'auto', 'tiled', True or False, got {mode!r}")
-        # the reference's modes: "tiled" (and "auto" on the accelerator) run
-        # K2's port, True runs K1's
-        self.solver_mode = True if mode is True else "tiled"
+        # the reference's values: "tiled" runs K2's port, True runs K1's,
+        # False runs step_physics
+        self.solver_mode = mode
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -412,8 +420,35 @@ class ClothEnv:
         lin = (a * cfg.action_scale).reshape(a.shape[0], cfg.num_grippers, 3)
         return scene._replace(bodies=scene.bodies._replace(lin_vel=lin))
 
+    def _hanger_contacts(self, hanger_pos):
+        cfg = self.cfg
+
+        def hook_sdf(points):
+            """Capsule along +y from the hanger origin."""
+            rel = points - hanger_pos[:, None, :]
+            y = torch.clamp(rel[..., 1], 0.0, 2 * cfg.hanger_half_len)
+            zero = torch.zeros_like(y)
+            d = rel - torch.stack([zero, y, zero], dim=-1)
+            dist = torch.linalg.vector_norm(d, dim=-1)
+            return dist - cfg.hanger_radius, d / torch.clamp(dist, min=1e-9)[..., None]
+
+        return (
+            ParticleSDFContact(
+                sdf=hook_sdf, friction=0.2, restitution=cfg.restitution,
+                dynamic_friction=cfg.dynamic_friction_scale * 0.2,
+            ),
+        )
+
     def _physics(self, scene: SceneState, hanger_pos) -> SceneState:
-        return self._physics_pallas(scene, hanger_pos)
+        cfg = self.cfg
+        if self.solver_mode:
+            return self._physics_pallas(scene, hanger_pos)
+        return step_physics(
+            scene, self.body_spec, cfg.dt, cfg.decimation, particle_spec=self.particle_spec,
+            distance_groups=self.distance_groups, attachments=self.attachments,
+            particle_contacts=self._hanger_contacts(hanger_pos), self_contacts=self.self_contacts,
+            iterations=cfg.iterations,
+        )
 
     def _physics_pallas(self, scene: SceneState, hanger_pos) -> SceneState:
         """Decimation substeps, each one fused position solve (the name keeps

@@ -8,8 +8,10 @@ target (static marker), plate (insertion only, static)].
 
 `step` draws fresh poses for every env on every step and selects those of
 the envs that finished with `torch.where`; it reads nothing back to the host,
-so a rollout on the card stays asynchronous. The XPBD velocity pass
-(restitution, dynamic friction) is not ported yet and is refused.
+so a rollout on the card stays asynchronous. `restitution` and
+`dynamic_friction_scale` reach every contact (the dynamic coefficient is the
+scale times the contact's static one) and turn on the XPBD velocity pass;
+both default to 0, which runs none.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ class RigidTaskCfg:
     velocity_weight: float = 0.0  # sliding: -0.1
     action_rate_weight: float = 0.0  # sliding: -2e-3
 
-    # velocity-pass material; > 0 is refused (the pass is not ported yet)
+    # velocity-pass material; 0 runs no pass, dynamic_friction_scale=1.0 gives
+    # each contact a dynamic coefficient equal to its static one
     restitution: float = 0.0
     dynamic_friction_scale: float = 0.0
 
@@ -152,11 +155,6 @@ class RigidEnv:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RigidEnv runs on the card by default and torch finds no CUDA device; "
                                "pass device='cpu' to run on the CPU")
-        if cfg.restitution > 0.0 or cfg.dynamic_friction_scale > 0.0:
-            raise NotImplementedError(
-                "restitution / dynamic_friction_scale need the XPBD velocity pass, which is not ported yet: "
-                "ROADMAP.md Queue 1 item 12"
-            )
         B = cfg.num_envs
 
         def t(values, dtype=torch.float32):
@@ -362,8 +360,13 @@ class RigidEnv:
         and the current poses of the static bodies."""
         cfg = self.cfg
         contacts, pair_contacts = [], []
+
+        def material(friction):
+            return dict(friction=friction, restitution=cfg.restitution,
+                        dynamic_friction=cfg.dynamic_friction_scale * friction)
+
         if cfg.ground:
-            contacts.append(ContactSet(body=cfg.object_body, local_points=self.obj_surface, sdf=ground_sdf, friction=0.5))
+            contacts.append(ContactSet(body=cfg.object_body, local_points=self.obj_surface, sdf=ground_sdf, **material(0.5)))
         if cfg.has_plate:
             plate_pos = scene.bodies.pos[:, cfg.plate_body]
             plate_quat = scene.bodies.quat[:, cfg.plate_body]
@@ -374,7 +377,7 @@ class RigidEnv:
                 phi, n_local = hole_plate_sdf(local, self.hole_outline, cfg.plate_half_extent, half, -half)
                 return phi, quat_apply(plate_quat[:, None, :], n_local)
 
-            contacts.append(ContactSet(body=cfg.object_body, local_points=self.obj_surface, sdf=plate_sdf, friction=0.3))
+            contacts.append(ContactSet(body=cfg.object_body, local_points=self.obj_surface, sdf=plate_sdf, **material(0.3)))
         if not cfg.attached:
             # pushing: gripper stick vs object prism (both ways via pair contact)
             outline, hh, eps = self.obj_outline, cfg.shape_half_height, self.fd_eps
@@ -401,7 +404,7 @@ class RigidEnv:
 
             for i in range(cfg.num_grippers):
                 pair_contacts.append(BodyPairContact(
-                    body_points=i, body_sdf=cfg.object_body, local_points=self.stick_points, sdf=obj_sdf, friction=0.6,
+                    body_points=i, body_sdf=cfg.object_body, local_points=self.stick_points, sdf=obj_sdf, **material(0.6),
                 ))
         return contacts, pair_contacts
 

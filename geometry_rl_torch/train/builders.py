@@ -1,5 +1,5 @@
 """Agent builders (port of `geometry_rl_tpu/train/builders.py` for the
-ported combinations: the cloth_hanging and rigid tasks + HEPi policy +
+ported combinations: the cloth_hanging, rigid and rope tasks + HEPi policy +
 DeepSets critic + the projection of the algorithm)."""
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ import torch
 from ..envs import make_env
 from ..envs.cloth import ClothEnv
 from ..envs.rigid import RigidEnv
+from ..envs.rope import RopeEnv
 from ..graphs.cloth import ClothGraphBuilder
 from ..graphs.rigid import RigidGraphBuilder
+from ..graphs.rope import RopeGraphBuilder
 from ..models import DeepSets, DiagGaussianPolicy, GraphValueNet, HEPi
 from ..rl.projections import get_projection_layer
 from .ppo import TrainConfig, Trainer
@@ -26,6 +28,8 @@ def make_graph_builder(env, dist_as_pos: bool, model: str = "", **builder_kw):
         return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
     if isinstance(env, RigidEnv):
         return RigidGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
+    if isinstance(env, RopeEnv):
+        return RopeGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
     raise NotImplementedError(f"graph builder for {type(env).__name__} is not ported yet (ROADMAP.md Queue 1)")
 
 

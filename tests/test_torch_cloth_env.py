@@ -4,7 +4,16 @@ The JAX env runs its tiled Pallas solve in interpret mode (what `_physics`
 selects off the accelerator); the port runs its plain solve on the CPU. Both
 start from the same state (the JAX reset, converted) and take the same
 actions; no reset mixes in within the 5 steps.
+
+`use_pallas_solver=False` (the XPBD `step_physics` solver with the grippers
+as real bodies) is held against the JAX env's same mode, against the golden
+file `cloth_hanging.npz` (which that mode of the JAX env wrote) at the golden
+gate's tolerance, and against the port's own "tiled" mode at the JAX
+package's Pallas-vs-XLA gate (2e-4, both solvers advancing the same state
+each step, tests/test_golden_trajectories.py).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +24,7 @@ import torch
 from geometry_rl_tpu.envs import make_env as jax_make_env
 from geometry_rl_torch.convert import cloth_state_from_jax
 from geometry_rl_torch.envs import make_env
+from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.envs.cloth import N_PARTICLES, build_hole_variant, grid_constraints, sample_hole_placements
 
 # the JAX package's own Pallas-vs-XLA gate (tests/test_envs_cloth.py); f32 on
@@ -126,8 +136,7 @@ def test_reset_layout_is_valid():
 
 
 # the reference's solver_mode per setting: "auto" picks the tiled kernel on
-# the accelerator (the JAX env on a CPU picks its XLA path instead, which the
-# port does not have)
+# the accelerator (the JAX env on a CPU picks its XLA path instead)
 SOLVER_MODES = [("auto", "tiled"), ("tiled", "tiled"), (True, True)]
 
 
@@ -137,12 +146,23 @@ def test_solver_modes(mode, expected):
     assert env.solver_mode == expected and type(env.solver_mode) is type(expected)
     if mode != "auto":
         assert jax_make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode).solver_mode == expected
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("cloth_hanging", num_envs=1, use_pallas_solver=False, device="cpu")
-    # with the velocity-pass material "auto" means the XLA path, which is not
-    # ported; an explicit kernel refuses the material
-    with pytest.raises(NotImplementedError if mode == "auto" else ValueError, match="ROADMAP|velocity-pass"):
-        make_env("cloth_hanging", num_envs=1, use_pallas_solver=mode, restitution=0.5, device="cpu")
+    xpbd_env = make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=False, device="cpu")
+    assert xpbd_env.solver_mode is False
+    assert jax_make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=False).solver_mode is False
+    # with the velocity-pass material "auto" means the step_physics solver
+    # (the reference's rule); an explicit kernel refuses the material
+    if mode == "auto":
+        for material in (dict(restitution=0.5), dict(dynamic_friction_scale=1.0)):
+            env = make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode, device="cpu", **material)
+            assert env.solver_mode is False
+            assert jax_make_env("cloth_hanging", num_envs=1, warmup_steps=0, use_pallas_solver=mode, **material).solver_mode is False
+    else:
+        with pytest.raises(ValueError, match="velocity-pass"):
+            make_env("cloth_hanging", num_envs=1, use_pallas_solver=mode, restitution=0.5, device="cpu")
+        with pytest.raises(ValueError, match="velocity-pass"):
+            jax_make_env("cloth_hanging", num_envs=1, use_pallas_solver=mode, restitution=0.5)
+    with pytest.raises(ValueError, match="use_pallas_solver must be"):
+        make_env("cloth_hanging", num_envs=1, use_pallas_solver="fused", device="cpu")
 
 
 @pytest.mark.parametrize("step", range(2))
@@ -176,3 +196,107 @@ def per_env_trajectories():
         ts_state, tts = te.step(ts_state, torch.as_tensor(action))
         out.append((jax.tree_util.tree_map(np.asarray, (js, jts)), (ts_state, tts)))
     return out
+
+
+# ------------------------------------------- use_pallas_solver=False (XPBD)
+
+
+@pytest.fixture(scope="module")
+def xpbd_trajectories():
+    """3 steps of mode False on both sides, with and without the material."""
+    out = {}
+    for name, kw in (("plain", {}), ("self_collision", dict(self_collision=True)),
+                     ("material", dict(restitution=0.4, dynamic_friction_scale=1.0))):
+        je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=1, use_pallas_solver=False, **kw)
+        te = make_env("cloth_hanging", num_envs=B, warmup_steps=1, use_pallas_solver=False, device="cpu", **kw)
+        js = je.reset(jax.random.PRNGKey(8))
+        ts_state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(2)
+        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+        steps = []
+        for _ in range(3):
+            action = rng.uniform(-1.2, 1.2, (B, je.cfg.action_dim)).astype(np.float32)
+            js, jts = je.step(js, jnp.asarray(action))
+            ts_state, tts = te.step(ts_state, torch.as_tensor(action))
+            steps.append((jax.tree_util.tree_map(np.asarray, (js, jts)), (ts_state, tts)))
+        assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}  # this mode is not the fused solve
+        out[name] = steps
+    return out
+
+
+@pytest.mark.parametrize("step", range(3))
+@pytest.mark.parametrize("case", ["plain", "self_collision", "material"])
+def test_xpbd_mode_steps_match_reference(xpbd_trajectories, case, step):
+    """Mode False against the JAX env's mode False, at this file's gate."""
+    (js, jts), (ts, tts) = xpbd_trajectories[case][step]
+    for name, ref, got, atol in (
+        ("particles.pos", js.scene.particles.pos, ts.scene.particles.pos, ATOL),
+        ("particles.vel", js.scene.particles.vel, ts.scene.particles.vel, VEL_ATOL),
+        ("bodies.pos", js.scene.bodies.pos, ts.scene.bodies.pos, ATOL),
+        ("bodies.quat", js.scene.bodies.quat, ts.scene.bodies.quat, ATOL),
+        ("bodies.lin_vel", js.scene.bodies.lin_vel, ts.scene.bodies.lin_vel, VEL_ATOL),
+        ("reward", jts.reward, tts.reward, ATOL),
+        ("position_vectors", jts.obs["position_vectors"], tts.obs["position_vectors"], ATOL),
+    ):
+        np.testing.assert_allclose(got.numpy(), ref, atol=atol, err_msg=name)
+
+
+GOLDEN_FREE_STEPS = {0: 9, 1: 20}
+
+
+@pytest.mark.parametrize("how", ["free_running", "from_reference_state"])
+def test_xpbd_mode_reproduces_the_golden_trajectory(how):
+    """The gate's rollout (2 envs, no warm-up, 20 steps of its quasi-random
+    actions) from the JAX reset state, at the gate's atol 5e-3, rtol 1e-3.
+
+    Env 1 holds it free-running over all 20 frames (it ends 4e-5 off). Env 0
+    is chaotic from step 6 on, where the cloth slides over the hook: the
+    reference itself, started 1e-6 (one f32 rounding at |x| ~ 5) off the same
+    reset state, is 8e-3 to 6e-2 off its own golden frames 9-12 (three seeds,
+    measured with the JAX env). No independent f32 implementation can hold
+    those frames free-running, so env 0 is held free-running over its first 9
+    frames (2.6e-3 off at the 9th), and every one of the 20 frames of both
+    envs is held with each step taken from the reference's state one step
+    before it (the reference's run equals the file exactly)."""
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "cloth_hanging.npz"))["traj"]
+    je = jax_make_env("cloth_hanging", num_envs=2, warmup_steps=0)
+    assert je.solver_mode is False  # what wrote the file: "auto" off the accelerator
+    env = make_env("cloth_hanging", num_envs=2, warmup_steps=0, use_pallas_solver=False, device="cpu")
+    js = je.reset(jax.random.PRNGKey(123))
+    gen = torch.Generator().manual_seed(0)
+    state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), gen)
+    A = env.cfg.action_dim
+    frames = []
+    for t in range(golden.shape[0]):
+        action = jnp.sin(jnp.arange(2 * A, dtype=jnp.float32).reshape(2, A) * 0.7 + t * 0.3)
+        if how == "from_reference_state":
+            state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), gen)
+            js, _ = je.step(js, action)
+        state, _ = env.step(state, torch.as_tensor(np.array(action)))
+        frames.append(np.concatenate([state.scene.bodies.pos.numpy().reshape(2, -1),
+                                      state.scene.particles.pos.numpy().reshape(2, -1)], axis=-1))
+    frames = np.stack(frames)
+    for e in range(2):
+        n = 20 if how == "from_reference_state" else GOLDEN_FREE_STEPS[e]
+        np.testing.assert_allclose(frames[:n, e], golden[:n, e], atol=5e-3, rtol=1e-3, err_msg=f"env {e}")
+
+
+@pytest.mark.parametrize("self_collision", [False, True])
+def test_xpbd_and_tiled_modes_agree(self_collision):
+    """The port's two independent solvers over 3 control steps: both advance
+    the SAME state each step (the XPBD one's), particle and gripper positions
+    within 2e-4 (free-running, f32 order noise grows ~3x a step through cloth
+    contact and would gate chaos, not the solver)."""
+    kw = dict(num_envs=4, warmup_steps=0, self_collision=self_collision, device="cpu")
+    env_x = make_env("cloth_hanging", use_pallas_solver=False, **kw)
+    env_t = make_env("cloth_hanging", use_pallas_solver="tiled", **kw)
+    state = env_x.reset(torch.Generator().manual_seed(7))
+    A = env_x.cfg.action_dim
+    for t in range(3):
+        action = torch.sin(torch.arange(4 * A, dtype=torch.float32).reshape(4, A) * 0.7 + t * 0.3)
+        pre = env_x._apply_action(state.scene, action)
+        sx = env_x._physics(pre, state.hanger_pos)
+        st = env_t._physics(pre, state.hanger_pos)
+        np.testing.assert_allclose(st.particles.pos.numpy(), sx.particles.pos.numpy(), atol=ATOL)
+        np.testing.assert_allclose(st.bodies.pos.numpy(), sx.bodies.pos.numpy(), atol=ATOL)
+        state = state._replace(scene=sx)

@@ -257,3 +257,151 @@ def test_rigid_collect_does_not_synchronise(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(batch.reward).all()
+
+
+def tree_to(obj, device):
+    """Tensors of a NamedTuple tree moved to `device`; a generator is replaced."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, torch.Generator):
+        return torch.Generator(device=device).manual_seed(0)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(tree_to(o, device) for o in obj))
+    return obj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["rope_closing", "rope_shaping"])
+def test_rope_env_on_the_card_matches_cpu(cuda_device, task):
+    """Three steps of each rope task on the card and on the CPU from the same
+    state and actions: link and gripper positions and rewards within 1e-5
+    (f32 sums in another order), no cloth kernel launched."""
+    kw = dict(num_envs=8, num_links=20, rope_length=2.5, warmup_steps=2)
+    gpu, cpu = make_env(task, device=cuda_device, **kw), make_env(task, device="cpu", **kw)
+    sg = gpu.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    sc = tree_to(sg, "cpu")
+    actions = torch.rand((3, 8, 6), generator=torch.Generator().manual_seed(1)) * 2.4 - 1.2
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    for a in actions:
+        sg, ts_g = gpu.step(sg, a.to(cuda_device))
+        sc, ts_c = cpu.step(sc, a)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    for got, ref in ((sg.scene.particles.pos, sc.scene.particles.pos), (sg.scene.bodies.pos, sc.scene.bodies.pos),
+                     (ts_g.reward, ts_c.reward)):
+        assert (got.cpu() - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["rope_closing", "rope_shaping"])
+def test_rope_step_does_not_synchronise(cuda_device, task):
+    """The rope env step (and the episode's end, with its fresh layout) reads
+    nothing back to the host: with CUDA's sync debug mode set to error, four
+    steps (after a warm-up step) run through an auto-reset."""
+    env = make_env(task, num_envs=64, num_links=20, rope_length=2.5, warmup_steps=0, episode_length=3, device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    action = torch.full((64, 6), 0.3, device=cuda_device)
+    state, _ = env.step(state, action)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dones = []
+        for _ in range(4):
+            state, ts = env.step(state, action)
+            dones.append(ts.done)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.stack(dones).any() and torch.isfinite(state.scene.particles.pos).all() and torch.isfinite(ts.reward).all()
+
+
+@pytest.mark.cuda
+def test_rope_collect_does_not_synchronise(cuda_device):
+    """The whole rope_closing collect (obs normaliser, graph builders, HEPi,
+    critic, action sampling, env step) after a warm-up collect, under CUDA's
+    sync debug mode set to error."""
+    cfg = load_config("rope_closing_hepi_trpl", overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 0, "num_links": 20, "rope_length": 2.5}},
+        "collector": {"frames_per_batch": 32}, "algorithm": {"latent_dim": 16, "num_ori": 4},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, _, _ = trainer._collect(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, batch, _ = trainer._collect(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(batch.reward).all()
+
+
+@pytest.mark.cuda
+def test_rope_train_iteration_on_the_card_is_finite(cuda_device):
+    """One small rope_closing collect + update on the card: finite metrics,
+    params that moved, and neither cloth kernel launched."""
+    cfg = load_config("rope_closing_hepi_trpl", overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 1, "episode_length": 4, "num_links": 20, "rope_length": 2.5}},
+        "collector": {"frames_per_batch": 128}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 32}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert state.num_updates == 5 * 4
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_collision", [False, True])
+def test_cloth_xpbd_mode_matches_tiled_mode(cuda_device, self_collision):
+    """`use_pallas_solver=False` (step_physics, plain PyTorch) against
+    "tiled" (K2's port) on the card: both advance the same state each step
+    for 3 control steps, particle and gripper positions within 2e-4; the
+    XPBD mode launches neither kernel, the tiled one 2 per step."""
+    kw = dict(num_envs=16, warmup_steps=0, self_collision=self_collision, device=cuda_device)
+    env_x = make_env("cloth_hanging", use_pallas_solver=False, **kw)
+    env_t = make_env("cloth_hanging", use_pallas_solver="tiled", **kw)
+    assert env_x.solver_mode is False and env_t.solver_mode == "tiled"
+    state = env_x.reset(torch.Generator(device=cuda_device).manual_seed(7))
+    A = env_x.cfg.action_dim
+    for t in range(3):
+        action = torch.sin(torch.arange(16 * A, dtype=torch.float32, device=cuda_device).reshape(16, A) * 0.7 + t * 0.3)
+        pre = env_x._apply_action(state.scene, action)
+        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+        sx = env_x._physics(pre, state.hanger_pos)
+        assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+        st = env_t._physics(pre, state.hanger_pos)
+        assert LAUNCHES == {"cloth_solve": 2, "cloth_solve_env": 0}
+        assert (st.particles.pos - sx.particles.pos).abs().max().item() <= ATOL
+        assert (st.bodies.pos - sx.bodies.pos).abs().max().item() <= ATOL
+        state = state._replace(scene=sx)
+
+
+@pytest.mark.cuda
+def test_velocity_pass_on_the_card_matches_cpu(cuda_device):
+    """rigid_pushing with restitution and dynamic friction on: 3 steps on the
+    card and on the CPU from the same state, body positions within 1e-5; the
+    step with the material on does not synchronise either."""
+    kw = dict(num_envs=8, warmup_steps=2, restitution=0.3, dynamic_friction_scale=1.0)
+    gpu, cpu = make_env("rigid_pushing", device=cuda_device, **kw), make_env("rigid_pushing", device="cpu", **kw)
+    sg = gpu.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    sc = tree_to(sg, "cpu")
+    action = torch.tensor([1.0, 0.2, 0.0]).expand(8, 3)
+    sg, _ = gpu.step(sg, action.to(cuda_device))
+    sc, _ = cpu.step(sc, action)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            sg, _ = gpu.step(sg, action.to(cuda_device, non_blocking=True))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(2):
+        sc, _ = cpu.step(sc, action)
+    assert (sg.scene.bodies.pos.cpu() - sc.scene.bodies.pos).abs().max().item() <= 1e-5
+    assert (sg.scene.bodies.lin_vel.cpu() - sc.scene.bodies.lin_vel).abs().max().item() <= 1e-3

@@ -166,12 +166,16 @@ def test_reset_draws_valid_poses():
 
 
 def test_env_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        make_env("rigid_insertion", num_envs=2, restitution=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        make_env("rigid_pushing", num_envs=2, dynamic_friction_scale=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_env("rope_closing", num_envs=2, device="cpu")
+    """The material knobs and the rope tasks, once refused, build and step;
+    an unknown task and a missing card still raise."""
+    for task, kw in (("rigid_insertion", dict(restitution=0.5)), ("rigid_pushing", dict(dynamic_friction_scale=1.0)),
+                     ("rope_closing", dict(num_links=10, rope_length=1.25)), ("rope_shaping", dict(num_links=10, rope_length=1.25))):
+        env = make_env(task, num_envs=2, warmup_steps=1, device="cpu", **kw)
+        state = env.reset(torch.Generator().manual_seed(0))
+        state, ts = env.step(state, torch.zeros(2, env.cfg.action_dim))
+        assert torch.isfinite(ts.reward).all() and all(torch.isfinite(v).all() for v in ts.obs.values())
+    with pytest.raises(ValueError, match="rope_closing.*rope_shaping"):
+        make_env("rope_knotting", num_envs=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RigidEnv(TASK_REGISTRY["rigid_insertion"](num_envs=2), device="cuda")

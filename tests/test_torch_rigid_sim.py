@@ -285,14 +285,23 @@ def test_substep_matches_reference(task, seed, gyroscopic):
 
 
 def test_substep_refuses_what_is_not_ported(insertion):
+    """What this test once expected to be refused is ported and runs: a
+    contact with restitution goes through the velocity pass, and a scene
+    with particles steps them (free fall here: no constraint is given)."""
     _, te, _, tscene, _ = insertion
-    ground = te._contacts(tscene)[0][0]
-    bouncy = xpbd.ContactSet(body=ground.body, local_points=ground.local_points, sdf=ground.sdf, restitution=0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        xpbd.xpbd_substep(tscene, te.body_spec, 0.01, contacts=(bouncy,))
+    plate = te._contacts(tscene)[0][1]  # the pegs sit partly in their plates
+    bouncy = xpbd.ContactSet(body=plate.body, local_points=plate.local_points, sdf=plate.sdf, friction=plate.friction,
+                             restitution=0.5)
+    plain = xpbd.xpbd_substep(tscene, te.body_spec, 0.01, contacts=(plate,))
+    out = xpbd.xpbd_substep(tscene, te.body_spec, 0.01, contacts=(bouncy,))
+    assert torch.isfinite(out.bodies.lin_vel).all()
+    assert torch.equal(out.bodies.pos, plain.bodies.pos)  # the pass acts on velocities only
+    assert (out.bodies.lin_vel - plain.bodies.lin_vel).abs().max() > 1e-3
     parts = tscene._replace(particles=ParticleState(pos=torch.zeros(8, 3, 3), vel=torch.zeros(8, 3, 3)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        xpbd.xpbd_substep(parts, te.body_spec, 0.01)
+    out = xpbd.xpbd_substep(parts, te.body_spec, 0.01, particle_spec=xpbd.ParticleSpec(inv_mass=torch.ones(3)))
+    np.testing.assert_allclose(out.particles.vel.numpy(), np.broadcast_to(np.float32([0, 0, -0.0981]), (8, 3, 3)), atol=1e-6)
+    assert torch.equal(out.bodies.pos, xpbd.xpbd_substep(tscene, te.body_spec, 0.01).bodies.pos)
+    assert "NotImplementedError" not in open(xpbd.__file__).read()
 
 
 # ---------------------------------------------------- golden trajectories

@@ -122,8 +122,8 @@ def test_rollout_and_eval_run_on_cpu():
 def test_port_imports_no_jax(tmp_path):
     """The port on the CPU (trainer_from_config -> init -> a 2-step _collect
     -> train_iteration, then the training CLI and play on a tiny cloth run
-    with `use_pallas_solver=true` and on a tiny rigid_insertion run) imports
-    neither jax, flax, optax nor the JAX package, nor its native library."""
+    with `use_pallas_solver=true`, on a tiny rigid_insertion run and on a tiny
+    rope_closing run) imports neither jax, flax, optax nor the JAX package, nor its native library."""
     code = (
         "import sys, json, torch\n"
         "from geometry_rl_torch.config import load_config, trainer_from_config\n"
@@ -146,6 +146,13 @@ def test_port_imports_no_jax(tmp_path):
         "'collector.total_frames=16', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
         f"'algorithm.objective.mini_batch_size=8', 'logger.log_dir={tmp_path}/rigid'])\n"
         "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '8', "
+        "'--success-threshold', '0.1', '--device', 'cpu'])\n"
+        "assert 0.0 <= res['0']['success_rate'] <= 1.0\n"
+        "run = cli.main(['--config', 'rope_closing_hepi_trpl', '--device', 'cpu', '--override', "
+        "'env.num_envs=4', 'env.kwargs.num_links=10', 'env.kwargs.rope_length=1.25', 'env.kwargs.episode_length=6', "
+        "'collector.frames_per_batch=24', 'collector.total_frames=24', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
+        f"'algorithm.objective.mini_batch_size=12', 'logger.log_dir={tmp_path}/rope'])\n"
+        "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '6', "
         "'--success-threshold', '0.1', '--device', 'cpu'])\n"
         "assert 0.0 <= res['0']['success_rate'] <= 1.0\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'geometry_rl_tpu'))))\n"
