@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion and rope_closing HEPi paths on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths and its EMPN and Transformer paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -29,10 +29,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      card against the same steps on the CPU, where the solve is the plain
      version.
   6. training at full width through the CLI (`train.cli.main`, --device cuda,
-     env.kwargs.use_pallas_solver=true, 2 iterations of 100 envs x 100 steps,
-     5 epochs x 50 minibatches of 200): metrics.jsonl has 2 finite rows with
+     env.kwargs.use_pallas_solver=true, one iteration of 100 envs x 100 steps,
+     5 epochs x 50 minibatches of 200): metrics.jsonl has a finite row with
      the reference's keys, the params moved, K1's port ran exactly
-     2 x (10 + 2 x 100) = 420 times and K2's never, and the last checkpoint
+     2 x (10 + 100) = 220 times and K2's never, and the last checkpoint
      restores bit-exactly into a fresh trainer. Seconds per iteration, collect
      and update apart.
   7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json.
@@ -68,6 +68,26 @@ Phases, each printing a line; any failure raises and exits non-zero:
  16. `train.play` on that run (200 steps, threshold 0.1), as phase 11.
  17. `torch.profiler` over 2 control steps of the rope_closing collect at 200
      envs, as phase 12.
+ 18. EMPN training at full width through the CLI
+     (cloth_hanging_multi_empn_trpl: 100 envs x 100 steps, latent 64, 16
+     orientations, bf16, 5 epochs x 50 minibatches of 200; one iteration):
+     the checks of phase 10, K2's port ran exactly 2 x (10 + 100) = 220 times
+     (solver mode "auto") and K1's never. Peak device memory of the iteration.
+ 19. Transformer training at full width through the CLI
+     (rigid_insertion_multi_transformer_trpl: 1000 envs x 100 steps, 5 epochs
+     x 100 minibatches of 1000; one iteration): the checks of phase 10.
+ 20. two-gripper HEPi training at full width through the CLI
+     (rigid_insertion_two_agents_multi_hepi_trpl: 1000 envs, the std floor
+     and cap and the gradient clip of its YAML; one iteration): the checks of
+     phase 10; then `train.play` on that run.
+ 21. every other model on a small input (4 envs, f32): 3 deterministic steps
+     on the card against the CPU within SLICE_TOL, for empn, transformer,
+     gcn, meshgraphnet and mlp on rigid_insertion and empn and transformer on
+     cloth_hanging.
+ 22. `train/profile.py`'s update window (10 minibatch steps) on the EMPN
+     cloth config, the Transformer rigid config and the two-gripper HEPi
+     config: ms and device kernels per minibatch step, by part of the step,
+     the device's idle share and the window's peak device memory.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -233,11 +253,12 @@ def train_phase(card: str, config: str, overrides, expected: dict):
     iterations = cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]
     LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     run_dir = cli.main(["--config", config, "--device", "cuda", "--override", *overrides])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"[train] {config}: {iterations} iterations of {B} envs x {T} steps; cloth kernel launches {launches} "
-          f"(expected {expected})")
+          f"(expected {expected}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if launches != expected:
         fail(f"the training path of {config} launched {launches}, expected {expected}")
 
@@ -352,8 +373,9 @@ def update_parity_phase() -> None:
         fail(f"the card's params after the update disagree with the CPU's: {param_err}")
 
 
-def parity_phase(card: str, config: str, positions: dict) -> None:
-    """The slice of `config` on a small input (4 envs, f32): 3 deterministic
+def parity_phase(card: str, config: str, positions: dict, model: str = "") -> None:
+    """The slice of `config` (with its `model` replaced where one is given) on
+    a small input (4 envs, f32): 3 deterministic
     steps on the card against the same steps on the CPU, from the same state,
     normaliser and params; actions, rewards and each `positions[name](env_state)`
     within SLICE_TOL of each quantity's scale."""
@@ -365,7 +387,9 @@ def parity_phase(card: str, config: str, positions: dict) -> None:
     t_phase = time.perf_counter()
     small = load_config(config, overrides={
         "env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}, "algorithm": {"dtype": "float32"},
+        **({"model": model} if model else {}),
     })
+    config = f"{config} as {model}" if model else config
     gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
     g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
     cpu.policy.load_state_dict(gpu.policy.state_dict())
@@ -473,6 +497,29 @@ def profile_phase(card: str, config: str, steps: int = 2) -> None:
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
         print(f"[profile]   kernel {t / 1e3:8.2f} ms {c // steps:6d}x per control step  {name[:100]}")
     print(f"[profile] phase took {time.perf_counter() - t_phase:.2f} s")
+
+
+def update_profile_phase(card: str, config: str, collect_steps: int, minibatches: int = 10) -> dict:
+    """Phase 22: `train/profile.py`'s update window on `config` at full
+    width, on a batch of `collect_steps` control steps (enough for
+    `minibatches` minibatches; the window needs no whole iteration)."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.profile import update_window
+
+    t_phase = time.perf_counter()
+    cfg = load_config(config)
+    cfg["collector"]["frames_per_batch"] = collect_steps * cfg["env"]["num_envs"]
+    trainer = trainer_from_config(cfg, device="cuda")
+    if trainer.num_minibatches < minibatches:
+        fail(f"{collect_steps} control steps of {config} hold {trainer.num_minibatches} minibatches, {minibatches} needed")
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    stats = update_window(trainer, state, minibatches, tag=f"{config}: ")
+    if not stats["kernels_per_minibatch"] > 0:
+        fail(f"the profiler recorded no device kernels in the {config} update")
+    print(f"[profile] {config}: update window on {card}; phase took {time.perf_counter() - t_phase:.2f} s")
+    return stats
 
 
 def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
@@ -663,10 +710,10 @@ def main() -> int:
     parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})
 
     # ---- 6. training at full width through the CLI -------------------------
-    # K1's port: 2 substeps x (10 warmup steps + 2 iterations x 100 steps)
+    # K1's port: 2 substeps x (10 warmup steps + one iteration of 100 steps)
     run_dir, cloth_launches = train_phase(
-        card, "cloth_hanging_multi_hepi_trpl", ["env.kwargs.use_pallas_solver=true", "collector.total_frames=20000"],
-        {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 2 * 100)},
+        card, "cloth_hanging_multi_hepi_trpl", ["env.kwargs.use_pallas_solver=true", "collector.total_frames=10000"],
+        {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 100)},
     )
     env_launches = cloth_launches["cloth_solve_env"]
 
@@ -705,6 +752,34 @@ def main() -> int:
     # ---- 17. where the rope collect's device time goes -------------------------
     profile_phase(card, ROPE_CONFIG)
 
+    # ---- 18. EMPN on cloth_hanging at full width through the CLI ------------
+    # solver mode "auto" launches K2's port: 2 substeps x (10 warm-up steps + 100 control steps);
+    # the fresh trainer of the restore check resets after the count is read
+    run_dir, empn_launches = train_phase(card, "cloth_hanging_multi_empn_trpl", ["collector.total_frames=10000"],
+                                         {"cloth_solve": 2 * (10 + 100), "cloth_solve_env": 0})
+    shutil.rmtree(os.path.dirname(run_dir))
+
+    # ---- 19. the Transformer on rigid_insertion at full width ----------------
+    run_dir, _ = train_phase(card, "rigid_insertion_multi_transformer_trpl", ["collector.total_frames=100000"],
+                             {"cloth_solve": 0, "cloth_solve_env": 0})
+    shutil.rmtree(os.path.dirname(run_dir))
+
+    # ---- 20. two-gripper HEPi at full width, then play ------------------------
+    run_dir, _ = train_phase(card, "rigid_insertion_two_agents_multi_hepi_trpl", ["collector.total_frames=100000"],
+                             {"cloth_solve": 0, "cloth_solve_env": 0})
+    play_phase(card, run_dir)
+
+    # ---- 21. every other model on a small input against the CPU --------------
+    for model in ("empn", "transformer", "gcn", "meshgraphnet", "mlp"):
+        parity_phase(card, RIGID_CONFIG, {"body positions": lambda s: s.scene.bodies.pos}, model=model)
+    for model in ("empn", "transformer"):
+        parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos}, model=model)
+
+    # ---- 22. where the new models' update time goes ---------------------------
+    update_profile_phase(card, "cloth_hanging_multi_empn_trpl", collect_steps=20)  # 2000 samples: 10 minibatches of 200
+    update_profile_phase(card, "rigid_insertion_multi_transformer_trpl", collect_steps=10)  # 10 minibatches of 1000
+    update_profile_phase(card, "rigid_insertion_two_agents_multi_hepi_trpl", collect_steps=10)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",
          "replaces": f"geometry_rl_tpu/sim/pallas_cloth.py:{line}", "launches": n_launch,
@@ -712,7 +787,7 @@ def main() -> int:
          "plain_ms": kernel_stats[(name, 100, False)][2], "bound_ms": kernel_stats[(name, 100, False)][3],
          "bound_by": kernel_stats[(name, 100, False)][4], "library_ms": None,
          "ms_b1000": kernel_stats[(name, 1000, False)][1], "bound_ms_b1000": kernel_stats[(name, 1000, False)][3],
-         "ms_self_b4": kernel_stats[(name, 4, True)][1]}
+         "ms_self_b4": kernel_stats[(name, 4, True)][1], "launches_empn_training": empn_launches[name]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ]}))
     print(smi)

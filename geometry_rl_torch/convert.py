@@ -30,7 +30,11 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax param tree (numpy leaves, optionally under "params") -> a
     `state_dict` for the port's module of the same architecture. Dense
     kernels [in, out] become Linear weights [out, in]; LayerNorm `scale`
-    becomes `weight`."""
+    becomes `weight`. Flax's attention projections are flattened over their
+    (heads, head_dim) axes first: `query` / `key` / `value` kernels [in,
+    heads, head_dim] and biases [heads, head_dim], `out` kernels [heads,
+    head_dim, out]. Bare parameters (`bias`, `layer_scale`, `cls_token`, a
+    non-contextual `pre_std`) pass through under their names."""
     if "params" in tree:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -41,8 +45,14 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 walk(sub, path + [_module_name(key)])
                 continue
             arr = np.array(sub, dtype=np.float32)  # a writable copy
-            if key == "kernel" and arr.ndim == 2:
+            if key == "kernel" and arr.ndim == 3:  # an attention projection
+                arr = arr.reshape(-1, arr.shape[-1]) if path[-1] == "out" else arr.reshape(arr.shape[0], -1)
+            if key == "kernel":
+                if arr.ndim != 2:
+                    raise ValueError(f"{'.'.join(path)}.kernel has shape {arr.shape}: no Linear weight for it")
                 key, arr = "weight", arr.T
+            elif key == "bias" and arr.ndim == 2:  # [heads, head_dim]
+                arr = arr.reshape(-1)
             elif key == "scale":
                 key = "weight"
             out[".".join(path + [key])] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -1,5 +1,6 @@
 """Hetero -> homogeneous graph merging (port of
-`geometry_rl_tpu/graphs/homogenize.py`). Node types are concatenated in
+`geometry_rl_tpu/graphs/homogenize.py`) for the EMPN / GCN / MeshGraphNet /
+Transformer baselines and the DeepSets critic. Node types are concatenated in
 `graph.nodes` order; edge indices are offset into the merged node array."""
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ class HomogeneousGraph(NamedTuple):
     edges: EdgeSet  # merged, with offset indices
     edge_type_onehot: torch.Tensor  # [B, Etot, num_edge_types]
     node_slices: Dict[str, Tuple[int, int]]  # node type -> (start, stop)
+
+    def output_slice(self, graph: HeteroGraph) -> Tuple[int, int]:
+        return self.node_slices[graph.output_node_type]
 
 
 def homogenize(graph: HeteroGraph) -> HomogeneousGraph:
@@ -41,7 +45,7 @@ def homogenize(graph: HeteroGraph) -> HomogeneousGraph:
         dst_list.append(es.dst + offsets[d_t])
         emask_list.append(es.mask)
         oh = torch.zeros(es.src.shape + (num_et,), dtype=pos.dtype, device=pos.device)
-        oh[..., ei] = 1.0
+        oh.select(-1, ei).fill_(1.0)  # `oh[..., ei] = 1.0` would copy a host scalar to the card
         onehot_list.append(oh)
     edges = EdgeSet(src=torch.cat(src_list, dim=1), dst=torch.cat(dst_list, dim=1), mask=torch.cat(emask_list, dim=1))
     return HomogeneousGraph(pos, node_mask, edges, torch.cat(onehot_list, dim=1), slices)

@@ -1,8 +1,9 @@
 """One-shot kernel calibration for PONITA convolutions (port of
 `geometry_rl_tpu/models/calibration.py`).
 
-One forward pass records each FiberBundleConv's activation stds on its first
-call, then every conv is rescaled so each stage preserves feature std:
+One forward pass records the activation stds of each conv (FiberBundleConv,
+SeparableFiberBundleConvNext) on its first call, then every conv is rescaled
+so each stage preserves feature std:
 kernel *= std_in / std_1, fiber_kernel *= std_1 / std_2.
 """
 
@@ -11,13 +12,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .ponita import FiberBundleConv
+from .ponita import FiberBundleConv, SeparableFiberBundleConvNext
 
 
 @torch.no_grad()
 def calibrate(model: nn.Module, *args, **kwargs) -> None:
-    """Rescale, in place, the kernels of every FiberBundleConv in `model`."""
-    convs = [m for m in model.modules() if isinstance(m, FiberBundleConv)]
+    """Rescale, in place, the kernels of every PONITA conv in `model`; a model
+    without one is left as it is (and is not run)."""
+    convs = [m for m in model.modules() if isinstance(m, (FiberBundleConv, SeparableFiberBundleConvNext))]
+    if not convs:
+        return
     for conv in convs:
         conv.calib_stats = []
     try:

@@ -72,8 +72,10 @@ class LayerNorm(nn.LayerNorm):
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw fresh parameters for every Dense / LayerNorm in `module`, and zero
-    the loose biases registered as `bias` parameters (FiberBundleConv)."""
+    """Draw fresh parameters for every Dense / LayerNorm in `module`, zero the
+    loose biases registered as `bias` parameters (the PONITA convs), and let
+    a module that holds other bare parameters (a layer scale, a CLS token, a
+    non-contextual `pre_std`) draw them in its `reset_loose_parameters`."""
     for m in module.modules():
         if isinstance(m, Dense):
             m.reset_parameters(generator)
@@ -82,6 +84,11 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
         elif isinstance(getattr(m, "bias", None), nn.Parameter) and not isinstance(m, nn.Linear):
             nn.init.zeros_(m.bias)
+        if hasattr(m, "reset_loose_parameters"):
+            m.reset_loose_parameters(generator)
+
+
+ACTIVATIONS = {"tanh": torch.tanh, "relu": F.relu, "elu": F.elu, "gelu": gelu, "silu": F.silu}
 
 
 class MLP(nn.Module):
@@ -110,6 +117,26 @@ class MLP(nn.Module):
                     x = getattr(self, f"layer_norm_{i}")(x)
                 x = self.activation(x)
         return x
+
+
+class ActivatedMLP(nn.Module):
+    """The flat-observation agents' trunk: `dense_i` + a named activation per
+    hidden width (f32). `hidden(obs)` -> [..., hidden_dims[-1]] (`out_dim`)."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int], activation: str, device=None):
+        super().__init__()
+        self.act = ACTIVATIONS[activation]
+        self.n_hidden = len(hidden_dims)
+        dims = [in_dim, *hidden_dims]
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            self.add_module(f"dense_{i}", Dense(a, b, device=device))
+        self.out_dim = dims[-1]
+
+    def hidden(self, obs: torch.Tensor) -> torch.Tensor:
+        h = obs
+        for i in range(self.n_hidden):
+            h = self.act(getattr(self, f"dense_{i}")(h))
+        return h
 
 
 def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -2,7 +2,8 @@
 `geometry_rl_tpu/models/hepi.py`).
 
 `forward(graph, feats) -> (out [B, G, output_dim_vec, 3], latent [B, G,
-latent_dim])` with G the number of output nodes. Node signals are lifted onto
+latent_dim])` with G the number of output nodes (`concat_global` appends the
+mean over all nodes, doubling the latent's width). Node signals are lifted onto
 an S2 orientation grid; message passing runs per edge LEVEL with the binary
 per-round schedule `message_codes`; the decoder gives equivariant vector
 outputs as orientation-weighted sums.
@@ -37,6 +38,7 @@ class HEPi(nn.Module):
         message_codes: Sequence[Sequence[int]] = ((1, 0), (0, 1), (0, 1)),
         only_upper_hemisphere: bool = True,
         graph_levels: Optional[Sequence[str]] = None,
+        concat_global: bool = False,
         basis_dim: Optional[int] = None,
         widening_factor: int = 4,
         dtype=torch.float32,
@@ -45,6 +47,7 @@ class HEPi(nn.Module):
         super().__init__()
         self.output_dim, self.num_ori, self.dtype = output_dim, num_ori, dtype
         self.num_messages, self.edge_levels, self.message_codes = num_messages, tuple(edge_levels), message_codes
+        self.concat_global = concat_global
         self.register_buffer(
             "ori_grid", fibonacci_lattice(num_ori, upper_hemisphere=only_upper_hemisphere, device=device), persistent=False
         )
@@ -61,7 +64,7 @@ class HEPi(nn.Module):
                         f"processor_{k}_{level}",
                         FiberBundleConv(latent_dim, basis_dim, widening_factor, dtype=dtype, device=device),
                     )
-        self.decoder = Dense(latent_dim, output_dim + output_dim_vec, dtype=dtype, device=device)
+        self.decoder = Dense(latent_dim * (2 if concat_global else 1), output_dim + output_dim_vec, dtype=dtype, device=device)
 
     def forward(self, graph: HeteroGraph, feats: GraphFeatures, ori_grid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if ori_grid is None:
@@ -99,6 +102,10 @@ class HEPi(nn.Module):
                 latent[dst] = sum(vals) if len(vals) > 1 else vals[0]
 
         h = latent[graph.output_node_type]  # [B,G,O,C]
+        if self.concat_global:
+            # global mean over every node of every type
+            g = torch.cat([latent[nt] for nt in graph.node_types], dim=1).mean(dim=1, keepdim=True)
+            h = torch.cat([h, g.expand(h.shape[:2] + g.shape[2:])], dim=-1)
         output = self.decoder(h).float()  # decode in f32
         out_scalar = output[..., : self.output_dim].mean(dim=-2)  # [B,G,out_s]
         out_vec_sph = output[..., self.output_dim :]  # [B,G,O,out_v]

@@ -27,6 +27,16 @@ def vec_to_sphere(vec: torch.Tensor, ori_grid: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...vd,od->...ov", vec, ori_grid)
 
 
+def sphere_to_scalar(x: torch.Tensor) -> torch.Tensor:
+    """[..., O, S] -> [..., S]: mean over orientations."""
+    return x.mean(dim=-2)
+
+
+def sphere_to_vec(x: torch.Tensor, ori_grid: torch.Tensor) -> torch.Tensor:
+    """[..., O, V] -> [..., V, D]: signal-weighted sum of grid directions."""
+    return torch.einsum("...ov,od->...vd", x, ori_grid) / ori_grid.shape[0]
+
+
 def polynomial_features(x: torch.Tensor, degree: int) -> torch.Tensor:
     """All monomials of x up to `degree`+1 via iterated outer products.
     [..., d] -> [..., sum_{i=1..degree+1} d^i]."""
@@ -70,8 +80,24 @@ class PolynomialBasis(nn.Module):
         return gelu(self.dense_1(gelu(self.dense_0(x))))
 
 
+def _spatial_conv(x_src, src, dst, edge_mask, num_dst: int, kernel, dt) -> torch.Tensor:
+    """Messages kernel_e * x_src[src_e], masked, scatter-added at dst: [B,Nd,O,C]."""
+    messages = kernel * gather_nodes(x_src, src) * edge_mask[..., None, None].to(dt)  # [B,E,O,C]
+    return scatter_sum(messages, dst, num_dst)
+
+
+def _depthwise_fiber_conv(x_1: torch.Tensor, fiber_kernel: torch.Tensor) -> torch.Tensor:
+    """The contraction over orientations, channel by channel, over O."""
+    return torch.einsum("bnoc,opc->bnpc", x_1, fiber_kernel) / fiber_kernel.shape[-2]
+
+
+def _std(t: torch.Tensor) -> torch.Tensor:
+    """`jnp.std`: no Bessel correction."""
+    return t.float().std(correction=0)
+
+
 class FiberBundleConv(nn.Module):
-    """Depthwise separable group conv on the position-orientation fiber bundle.
+    """Separable group conv on the position-orientation fiber bundle.
 
     forward(x_src [B,Ns,O,C], x_dst [B,Nd,O,C], src, dst, edge_mask,
     kernel_basis [B,E,O,A], fiber_basis [O,O,A]) -> updated dst [B,Nd,O,C]:
@@ -79,16 +105,20 @@ class FiberBundleConv(nn.Module):
       2. fiber conv:   x2 = einsum(x1, fiber_kernel) / O
       3. ConvNeXt update: dst + MLP(LN(x2 + bias))
 
-    While `calib_stats` is a list, each call appends (std_in, std_1, std_2)
-    for `models/calibration.calibrate`.
+    `depthwise=True` (groups == channels) is what HEPi instantiates;
+    `depthwise=False` mixes all channels in the fiber conv. While
+    `calib_stats` is a list, each call appends (std_in, std_1, std_2) for
+    `models/calibration.calibrate`.
     """
 
-    def __init__(self, channels: int, basis_dim: int, widening_factor: int = 4, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, basis_dim: int, widening_factor: int = 4, use_bias: bool = True,
+                 depthwise: bool = True, dtype=torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.channels, self.depthwise = dtype, channels, depthwise
         self.kernel = Dense(basis_dim, channels, bias=False, dtype=dtype, device=device)
-        self.fiber_kernel = Dense(basis_dim, channels, bias=False, dtype=dtype, device=device)
-        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.fiber_kernel = Dense(basis_dim, channels if depthwise else channels * channels, bias=False, dtype=dtype,
+                                  device=device)
+        self.register_parameter("bias", nn.Parameter(torch.zeros(channels, device=device)) if use_bias else None)
         self.layer_norm_0 = LayerNorm(channels, dtype=dtype, device=device)
         self.dense_0 = Dense(channels, channels * widening_factor, dtype=dtype, device=device)
         self.dense_1 = Dense(channels * widening_factor, channels, dtype=dtype, device=device)
@@ -97,17 +127,56 @@ class FiberBundleConv(nn.Module):
     def forward(self, x_src, x_dst, src, dst, edge_mask, kernel_basis, fiber_basis):
         dt = self.dtype
         x_src, x_dst = x_src.to(dt), x_dst.to(dt)
-        kernel = self.kernel(kernel_basis)  # [B,E,O,C]
-        x_j = gather_nodes(x_src, src)  # [B,E,O,C]
-        messages = kernel * x_j * edge_mask[..., None, None].to(dt)
-        x_1 = scatter_sum(messages, dst, x_dst.shape[1])  # [B,Nd,O,C]
-
-        fiber_kernel = self.fiber_kernel(fiber_basis)  # [O,O,C]
-        x_2 = torch.einsum("bnoc,opc->bnpc", x_1, fiber_kernel) / fiber_kernel.shape[-2]
+        x_1 = _spatial_conv(x_src, src, dst, edge_mask, x_dst.shape[1], self.kernel(kernel_basis), dt)
+        fiber_kernel = self.fiber_kernel(fiber_basis)  # [O,O,C], or [O,O,C*C]
+        if self.depthwise:
+            x_2 = _depthwise_fiber_conv(x_1, fiber_kernel)
+        else:
+            fk = fiber_kernel.reshape(fiber_kernel.shape[:-1] + (self.channels, self.channels))  # [O,P,out,in]
+            x_2 = torch.einsum("bnoc,opdc->bnpd", x_1, fk) / fk.shape[0]
 
         if self.calib_stats is not None:
-            self.calib_stats.append(tuple(t.float().std(correction=0) for t in (x_dst, x_1, x_2)))
+            self.calib_stats.append((_std(x_dst), _std(x_1), _std(x_2)))
 
+        if self.bias is not None:
+            x_2 = x_2 + self.bias.to(dt)
+        h = self.dense_1(gelu(self.dense_0(self.layer_norm_0(x_2))))
+        return x_dst + h
+
+
+class SeparableFiberBundleConvNext(nn.Module):
+    """Homogeneous-graph ConvNeXt block used by PonitaGCN: conv -> LayerNorm
+    -> widening MLP -> layer scale -> residual. `layer_scale_init=None` leaves
+    the layer scale (param `layer_scale`) out, as PonitaGCN does."""
+
+    def __init__(self, channels: int, basis_dim: int, widening_factor: int = 4,
+                 layer_scale_init: Optional[float] = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.layer_scale_init = layer_scale_init
+        self.kernel = Dense(basis_dim, channels, bias=False, dtype=dtype, device=device)
+        self.fiber_kernel = Dense(basis_dim, channels, bias=False, dtype=dtype, device=device)
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.layer_norm_0 = LayerNorm(channels, dtype=dtype, device=device)
+        self.dense_0 = Dense(channels, channels * widening_factor, dtype=dtype, device=device)
+        self.dense_1 = Dense(channels * widening_factor, channels, dtype=dtype, device=device)
+        if layer_scale_init is not None:
+            self.layer_scale = nn.Parameter(torch.full((channels,), float(layer_scale_init), device=device))
+        self.calib_stats: Optional[List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]] = None
+
+    def reset_loose_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.layer_scale_init is not None:
+            nn.init.constant_(self.layer_scale, self.layer_scale_init)
+
+    def forward(self, x, src, dst, edge_mask, kernel_basis, fiber_basis):
+        dt = self.dtype
+        x = x.to(dt)
+        x_1 = _spatial_conv(x, src, dst, edge_mask, x.shape[1], self.kernel(kernel_basis), dt)
+        x_2 = _depthwise_fiber_conv(x_1, self.fiber_kernel(fiber_basis))
+        if self.calib_stats is not None:
+            self.calib_stats.append((_std(x), _std(x_1), _std(x_2)))
         h = self.layer_norm_0(x_2 + self.bias.to(dt))
         h = self.dense_1(gelu(self.dense_0(h)))
-        return x_dst + h
+        if self.layer_scale_init is not None:
+            h = self.layer_scale.to(dt) * h
+        return x + h

@@ -1,6 +1,6 @@
-"""Agent builders (port of `geometry_rl_tpu/train/builders.py` for the
-ported combinations: the cloth_hanging, rigid and rope tasks + HEPi policy +
-DeepSets critic + the projection of the algorithm)."""
+"""Agent builders (port of `geometry_rl_tpu/train/builders.py`): env + graph
+or flat builders + policy and critic modules of every model family + the
+projection of the algorithm, assembled into a Trainer."""
 
 from __future__ import annotations
 
@@ -13,45 +13,69 @@ from ..envs.cloth import ClothEnv
 from ..envs.rigid import RigidEnv
 from ..envs.rope import RopeEnv
 from ..graphs.cloth import ClothGraphBuilder
+from ..graphs.flat import FlatObsBuilder
 from ..graphs.rigid import RigidGraphBuilder
 from ..graphs.rope import RopeGraphBuilder
-from ..models import DeepSets, DiagGaussianPolicy, GraphValueNet, HEPi
+from ..models import DeepSets, DiagGaussianPolicy, GraphValueNet, MLPCritic, MLPGaussianPolicy, get_model
 from ..rl.projections import get_projection_layer
 from .ppo import TrainConfig, Trainer
 
+# the flat (non-graph) agent family
+FLAT_MODELS = ("mlp",)
+# models whose equivariant vector output IS the action mean (post_fc=False)
+EQUIVARIANT_MODELS = ("hepi", "ponita_gcn", "empn")
+# models whose edge encoder reads the edge-type one-hot
+EDGE_TYPED_MODELS = ("gcn", "meshgraphnet")
+
 
 def make_graph_builder(env, dist_as_pos: bool, model: str = "", **builder_kw):
-    """The task family's data layer, by env type. `dist_as_pos=True` marks
-    the policy builder; the cloth critic additionally keeps the particle
-    nodes. builder_kw forwards training_noise / training_noise_std."""
+    """The task family's data layer, by model family and env type.
+    `dist_as_pos=True` marks the policy builder; the cloth critic additionally
+    keeps the particle nodes. builder_kw forwards training_noise /
+    training_noise_std."""
+    if model.lower() in FLAT_MODELS:
+        return FlatObsBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
     if isinstance(env, ClothEnv):
         return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
     if isinstance(env, RigidEnv):
         return RigidGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
     if isinstance(env, RopeEnv):
         return RopeGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
-    raise NotImplementedError(f"graph builder for {type(env).__name__} is not ported yet (ROADMAP.md Queue 1)")
+    raise TypeError(f"no graph builder for {type(env).__name__}")
 
 
 def build_policy(model_name: str, env, builder, latent_dim: int = 64, num_ori: int = 16, dtype=torch.float32,
                  contextual_std: bool = True, share_action_dim: bool = True, init_std: float = 1.0,
-                 minimal_std: float = 1e-5, max_std: Optional[float] = None):
-    """HEPi Gaussian policy; its equivariant vector output is the action mean."""
-    if model_name.lower() != "hepi":
-        raise NotImplementedError(f"policy model {model_name!r} is not ported yet (ROADMAP.md Queue 1)")
-    if not contextual_std:
-        raise NotImplementedError("the non-contextual std head is not ported yet")
-    cfg = env.cfg
-    out_vec = cfg.action_dim // cfg.num_grippers // 3
-    backbone = HEPi(
-        builder.num_scalar_features, builder.num_vector_features, latent_dim=latent_dim, hidden_dim=latent_dim,
-        output_dim=out_vec, output_dim_vec=out_vec, num_ori=num_ori, graph_levels=builder.graph_levels, dtype=dtype,
-        device=env.device,
-    )
+                 minimal_std: float = 1e-5, max_std: Optional[float] = None, **model_kw):
+    """Policy module for a task. The torch modules take their input widths
+    from `builder`; `model_kw` goes to the backbone."""
+    cfg, device, name = env.cfg, env.device, model_name.lower()
+    std_kw = dict(init_std=init_std, minimal_std=minimal_std, max_std=max_std)
+    if name in FLAT_MODELS:
+        # the flat family is tiny and stays f32
+        return MLPGaussianPolicy(builder.flat_dim, cfg.action_dim, hidden_dims=(latent_dim * 4, latent_dim * 4),
+                                 contextual_std=contextual_std, device=device, **std_kw, **model_kw)
+    if name in EQUIVARIANT_MODELS:
+        out_vec = cfg.action_dim // cfg.num_grippers // 3  # 2 (6D) or 1 (3D linear)
+        if name == "hepi":
+            model_kw = {"graph_levels": builder.graph_levels, **model_kw}
+        backbone = get_model(
+            name, in_scalars=builder.num_scalar_features, in_vectors=builder.num_vector_features, latent_dim=latent_dim,
+            hidden_dim=latent_dim, output_dim=out_vec, output_dim_vec=out_vec, num_ori=num_ori, dtype=dtype, device=device,
+            **model_kw,
+        )
+    else:
+        if name in EDGE_TYPED_MODELS:
+            model_kw = {"num_edge_types": len(builder.graph_levels), **model_kw}
+        backbone = get_model(
+            name, in_dim=builder.num_scalar_features + 3 * builder.num_vector_features, hidden_dim=latent_dim,
+            output_dim=latent_dim, dtype=dtype, device=device, **model_kw,
+        )
+    head_in = latent_dim * (2 if model_kw.get("concat_global") else 1)  # the global token doubles the latent
     return DiagGaussianPolicy(
-        backbone, latent_dim, action_dim=cfg.action_dim, num_actuators=cfg.num_grippers,
-        share_action_dim=share_action_dim, post_fc=False, init_std=init_std, minimal_std=minimal_std,
-        max_std=max_std, device=env.device,
+        backbone, head_in, action_dim=cfg.action_dim, num_actuators=cfg.num_grippers,
+        share_action_dim=share_action_dim, contextual_std=contextual_std, post_fc=name not in EQUIVARIANT_MODELS,
+        device=device, **std_kw,
     )
 
 
@@ -92,7 +116,10 @@ def build_agent(
     policy_builder = make_graph_builder(env, dist_as_pos=True, model=model, **noise_kw)
     critic_builder = make_graph_builder(env, dist_as_pos=False, model=model, **noise_kw)
     policy = build_policy(model, env, policy_builder, latent_dim=latent_dim, num_ori=num_ori, dtype=dtype, **policy_kw)
-    critic = build_critic(critic_builder, latent_dim=latent_dim, dtype=dtype, device=env.device)
+    if model.lower() in FLAT_MODELS:
+        critic = MLPCritic(critic_builder.flat_dim, hidden_dims=(latent_dim * 4, latent_dim * 4), device=env.device)
+    else:
+        critic = build_critic(critic_builder, latent_dim=latent_dim, dtype=dtype, device=env.device)
     cfg = train_cfg or TrainConfig(algo=algo)
     # entropy schedules count network updates (the projection's `step` input)
     n_mb = max(1, cfg.steps_per_batch * num_envs // cfg.mini_batch_size)

@@ -9,8 +9,13 @@ then prints:
     a window of `--minibatches` steps;
   - under `torch.profiler` over the same window: device kernels per minibatch,
     the device's busy and idle share of the window's wall time, the device
-    and host time inside the KL projection's bisection (`kl_bisection`
-    range), and the kernels with the most device time.
+    kernels, device time and host time per minibatch of each part of the step
+    (forward, projection, the rest of the loss, backward, gradient clip,
+    Adam, and what is left: zero_grad and the logged gradient norm), the
+    device and host time inside the KL projection's bisection
+    (`kl_bisection` range), and the kernels with the most device time.
+`update_window(trainer, state, n)` is the window alone, for callers that
+have a trainer and a collected state already.
 It needs a card and raises without one.
 """
 
@@ -18,8 +23,150 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Dict
 
 import torch
+
+# the parts of a minibatch step, in the order they run; "clip" is
+# `_optimizer_step` less the optimizers' own `step` ("adam"), "loss" is
+# `_minibatch_loss` less its forwards and its projection
+PARTS = ("forward", "projection", "loss", "backward", "clip", "adam", "other")
+
+
+class _RangedProjection:
+    """The trainer's projection layer with its call under a profiler range."""
+
+    def __init__(self, projection):
+        self._projection = projection
+
+    def __call__(self, *args, **kwargs):
+        with torch.profiler.record_function("projection"):
+            return self._projection(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._projection, name)
+
+
+def _ranged(fn, label):
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    return ranged
+
+
+def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, float]:
+    """Time and profile `minibatches` minibatch steps on the batch collected
+    from `state` (which must hold at least that many minibatches). Prints the
+    report and returns its headline numbers."""
+    from ..rl.projections import kl
+
+    state, batch, _ = trainer._collect(state)
+    data = trainer._update_data(state, batch)
+    idx = trainer._permutation(state.generator, data["action"].shape[0])[:minibatches]
+    mbs = [{k: ({g: x[i] for g, x in v.items()} if k == "tobs" else v[i]) for k, v in data.items()} for i in idx]
+
+    def window():
+        for mb in mbs:
+            trainer._minibatch_step(state, mb, state.num_updates)
+
+    window()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(mbs)
+    step_ms = 1e3 * wall / n
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[profile] {tag}minibatch step: {step_ms:.3f} ms (synchronised, mean of {n}); peak device memory over the "
+          f"window {peak_gib:.3f} GiB")
+
+    # the ranges exist only here, so the training loop pays no host time for them
+    patches = [(kl, "_solve_eta", _ranged(kl._solve_eta, "kl_bisection")),
+               (trainer, "_policy_dist", _ranged(trainer._policy_dist, "forward")),
+               (trainer, "_value", _ranged(trainer._value, "forward")),
+               (trainer, "_minibatch_loss", _ranged(trainer._minibatch_loss, "minibatch_loss")),
+               (trainer, "_optimizer_step", _ranged(trainer._optimizer_step, "optimizer_step")),
+               (trainer, "projection", _RangedProjection(trainer.projection)),
+               (torch.Tensor, "backward", _ranged(torch.Tensor.backward, "backward")),
+               (state.actor_opt, "step", _ranged(state.actor_opt.step, "adam")),
+               (state.critic_opt, "step", _ranged(state.critic_opt.step, "adam"))]
+    # an instance attribute that shadows a method is deleted afterwards; what
+    # was the object's own (a module's function, a class's method) is put back
+    saved = [(obj, name, name in vars(obj), vars(obj).get(name)) for obj, name, _ in patches]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for obj, name, own, old in saved:
+            if own:
+                setattr(obj, name, old)
+            else:
+                delattr(obj, name)
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    # device-side events other than the ranges that record_function and the
+    # optimizer's step annotation mirror onto the device timeline
+    labels = {"kl_bisection", "forward", "minibatch_loss", "optimizer_step", "projection", "backward", "adam"}
+    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)} | labels
+    kernels = [e for e in events if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False) and e.name not in annotations
+               and not e.name.startswith("Optimizer.")]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    per_mb = len(kernels) / n
+    idle = 100 - 100 * busy_us / 1e6 / wall
+    print(f"[profile] {tag}profiled window: {1e3 * wall:.1f} ms wall for {n} minibatches, {per_mb:.0f} device "
+          f"kernels per minibatch, device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
+          f"(idle {idle:.1f}%)")
+
+    # each device kernel belongs to the CPU op that launched it; an op belongs
+    # to the range whose host interval holds its start (the backward's ops run
+    # on autograd's thread while the main thread waits inside its range)
+    ops = [(e.time_range.start, len(e.kernels), sum(k.duration for k in e.kernels))
+           for e in events if e.device_type == cpu and e.kernels]
+    spans = {label: [(e.time_range.start, e.time_range.end) for e in events if e.name == label and e.device_type == cpu]
+             for label in labels}
+
+    def inside(label):
+        count = dev = 0.0
+        for start, k, d in ops:
+            if any(a <= start < b for a, b in spans[label]):
+                count, dev = count + k, dev + d
+        return count, dev, sum(b - a for a, b in spans[label])
+
+    raw = {label: inside(label) for label in labels}
+    parts = {
+        "forward": raw["forward"], "projection": raw["projection"],
+        "loss": tuple(m - f - p for m, f, p in zip(raw["minibatch_loss"], raw["forward"], raw["projection"])),
+        "backward": raw["backward"], "adam": raw["adam"],
+        "clip": tuple(o - a for o, a in zip(raw["optimizer_step"], raw["adam"])),
+    }
+    total = (sum(k for _, k, _ in ops), sum(d for _, _, d in ops), 1e6 * wall)
+    parts["other"] = tuple(t - sum(v[i] for v in parts.values()) for i, t in enumerate(total))
+    for label in PARTS:
+        k, d, h = parts[label]
+        print(f"[profile] {tag}  {label:10s} {k / n:7.0f} device kernels, {d / 1e3 / n:7.3f} ms of device time, "
+              f"{h / 1e3 / n:7.3f} ms of host time per minibatch")
+    k, d, h = raw["kl_bisection"]
+    print(f"[profile] {tag}kl_bisection: {k / n:.0f} device kernels per minibatch, {d / 1e3:.2f} ms of device time = "
+          f"{100 * d / max(busy_us, 1):.1f}% of the busy time; {h / 1e3:.1f} ms of host time = "
+          f"{100 * h / 1e6 / wall:.1f}% of the window's wall time")
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"[profile] {tag}  {t / 1e3:8.2f} ms {c:6d}x  {name[:110]}")
+    return {"step_ms": step_ms, "kernels_per_minibatch": per_mb, "idle_percent": idle, "peak_gib": peak_gib,
+            **{f"kernels_{label}": parts[label][0] / n for label in PARTS}}
 
 
 def main(argv=None):
@@ -45,69 +192,7 @@ def main(argv=None):
     print(f"[profile] {args.config}: train_iteration collect {float(metrics['train/collect_time']):.3f} s, "
           f"update {float(metrics['train/update_time']):.3f} s "
           f"({trainer.cfg.ppo_epochs} epochs x {trainer.num_minibatches} minibatches of {trainer.mini_batch_size})")
-
-    state, batch, _ = trainer._collect(state)
-    data = trainer._update_data(state, batch)
-    idx = trainer._permutation(state.generator, data["action"].shape[0])[: args.minibatches]
-    mbs = [{k: ({g: x[i] for g, x in v.items()} if k == "tobs" else v[i]) for k, v in data.items()} for i in idx]
-
-    def window():
-        for mb in mbs:
-            trainer._minibatch_step(state, mb, state.num_updates)
-
-    window()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    window()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = len(mbs)
-    print(f"[profile] minibatch step: {1e3 * wall / n:.3f} ms (synchronised, mean of {n})")
-
-    # the bisection gets its range only here, so the training loop pays no
-    # host time for it
-    from ..rl.projections import kl
-
-    solve_eta = kl._solve_eta
-
-    def ranged_solve_eta(*a):
-        with torch.profiler.record_function("kl_bisection"):
-            return solve_eta(*a)
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    kl._solve_eta = ranged_solve_eta
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            window()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        kl._solve_eta = solve_eta
-    events = prof.events()
-    # device-side events other than the ranges that record_function and the
-    # optimizer's step annotation mirror onto the device timeline
-    annotations = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                   and getattr(e, "is_user_annotation", False)} | {"kl_bisection"}
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and e.name not in annotations
-               and not e.name.startswith("Optimizer.")]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    bisect = [e for e in events if e.name == "kl_bisection" and e.device_type == torch.autograd.DeviceType.CPU]
-    bisect_us = sum(e.device_time_total for e in bisect)
-    bisect_host_us = sum(e.time_range.elapsed_us() for e in bisect)
-    print(f"[profile] profiled window: {1e3 * wall:.1f} ms wall for {n} minibatches, {len(kernels) / n:.0f} device "
-          f"kernels per minibatch, device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
-          f"(idle {100 - 100 * busy_us / 1e6 / wall:.1f}%)")
-    print(f"[profile] kl_bisection: {bisect_us / 1e3:.2f} ms of device time = {100 * bisect_us / max(busy_us, 1):.1f}% "
-          f"of the busy time; {bisect_host_us / 1e3:.1f} ms of host time = {100 * bisect_host_us / 1e6 / wall:.1f}% "
-          f"of the window's wall time")
-    by_name = {}
-    for e in kernels:
-        c, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
-    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
-        print(f"[profile]   {t / 1e3:8.2f} ms {c:6d}x  {name[:110]}")
+    update_window(trainer, state, args.minibatches)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_torch.cuda_build import CSRC_DIR
 from geometry_rl_torch.envs import make_env

@@ -6,8 +6,9 @@ import inspect
 import pytest
 import torch
 
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 from geometry_rl_tpu import config as jax_config
-from geometry_rl_torch import config
+from geometry_rl_torch import config, models
 from geometry_rl_torch.envs import ClothEnv, RigidEnv, RopeEnv, make_env
 from geometry_rl_torch.train.builders import build_agent
 
@@ -26,38 +27,62 @@ def test_defaults_and_overrides_match_reference():
     )
 
 
-def test_trainer_from_config_reads_the_config():
-    cfg = config.load_config("cloth_hanging_multi_hepi_trpl", overrides={
-        "env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 6},
-        "algorithm": {"latent_dim": 8, "num_ori": 4, "dtype": "float32"},
-    })
-    tr = config.trainer_from_config(cfg, device="cpu")
-    assert tr.env.cfg.num_envs == 2 and tr.cfg.steps_per_batch == 3
-    assert tr.cfg.mini_batch_size == 200 and tr.cfg.total_iterations == 5_000_000 // 6
-    hepi = tr.policy.backbone
-    assert hepi.dtype == torch.float32 and hepi.num_ori == 4 and hepi.node_encoder.out_features == 8
-    rigid = config.load_config("rigid_insertion_multi_hepi_trpl", overrides={
-        "env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}}, "algorithm": {"latent_dim": 8, "num_ori": 4},
-    })
-    tr = config.trainer_from_config(rigid, device="cpu")
-    assert isinstance(tr.env, RigidEnv) and tr.cfg.steps_per_batch == 50_000 and tr.cfg.mini_batch_size == 1000
-    assert tr.cfg.total_iterations == 200 and tr.policy.backbone.dtype == torch.bfloat16
-    # both rope configs: 200 envs x 200 steps, minibatches of 200, and closing's projection bounds
-    small = {"env": {"kwargs": {"warmup_steps": 0, "num_links": 10, "rope_length": 1.25}}, "algorithm": {"latent_dim": 8, "num_ori": 4}}
-    for name, links, coeff, cov_bound in (("rope_closing_hepi_trpl", 40, 4.0, 0.001), ("rope_shaping_hepi_trpl", 80, None, None)):
-        full = config.load_config(name)
+TINY = {"env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}}, "algorithm": {"latent_dim": 8, "num_ori": 4}}
+ROPE_TINY = {"env": {"kwargs": {"warmup_steps": 0, "num_links": 10, "rope_length": 1.25}}, "algorithm": {"latent_dim": 8, "num_ori": 4}}
+BACKBONES = {"hepi": models.HEPi, "empn": models.PonitaGCN, "transformer": models.TransformerVanilla}
+
+
+@pytest.mark.parametrize("name", config.available_configs())
+def test_trainer_from_config_reads_the_config(name):
+    """`trainer_from_config` builds every shared YAML: the model family, its
+    head (`post_fc`), bf16 activations over f32 params, and the config's
+    sizes and algorithm settings."""
+    full = config.load_config(name)
+    rope = full["task"].startswith("rope")
+    tr = config.trainer_from_config(config.load_config(name, overrides=ROPE_TINY if rope else TINY), device="cpu")
+    assert len(config.available_configs()) == 15
+    backbone = tr.policy.backbone
+    assert type(backbone) is BACKBONES[full["model"]]
+    assert tr.policy.post_fc == (full["model"] == "transformer")
+    assert backbone.dtype == torch.bfloat16 and tr.critic.backbone.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr.policy.parameters())
+    assert tr.env.cfg.num_envs == (200 if rope else 2)
+    obj, proj = full["algorithm"]["objective"], full["algorithm"]["projection"]
+    assert tr.cfg.steps_per_batch == full["collector"]["frames_per_batch"] // tr.env.cfg.num_envs
+    assert tr.cfg.mini_batch_size == obj["mini_batch_size"] and tr.cfg.entropy_coef == obj["entropy_coef"]
+    assert tr.cfg.clip_grad_norm == obj["clip_grad_norm"] and tr.cfg.max_grad_norm == obj["max_grad_norm"]
+    assert tr.cfg.total_iterations == full["collector"]["total_frames"] // full["collector"]["frames_per_batch"]
+    assert tr.projection.trust_region_coeff == proj["trust_region_coeff"] and tr.projection.cov_bound == proj["cov_bound"]
+    assert isinstance(tr.env, {"cloth": ClothEnv, "rigid": RigidEnv, "rope": RopeEnv}[full["task"].split("_")[0]])
+    if name == "cloth_hanging_multi_hepi_trpl":
+        cfg = config.load_config(name, overrides={
+            "env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 6},
+            "algorithm": {"latent_dim": 8, "num_ori": 4, "dtype": "float32"},
+        })
+        tr = config.trainer_from_config(cfg, device="cpu")
+        assert tr.env.cfg.num_envs == 2 and tr.cfg.steps_per_batch == 3
+        assert tr.cfg.mini_batch_size == 200 and tr.cfg.total_iterations == 5_000_000 // 6
+        hepi = tr.policy.backbone
+        assert hepi.dtype == torch.float32 and hepi.num_ori == 4 and hepi.node_encoder.out_features == 8
+    if name == "rigid_insertion_multi_hepi_trpl":
+        assert tr.cfg.steps_per_batch == 50_000 and tr.cfg.mini_batch_size == 1000 and tr.cfg.total_iterations == 200
+    if name == "rigid_insertion_two_agents_multi_hepi_trpl":
+        # the std floor and cap and the gradient clip of that YAML
+        assert tr.policy.minimal_std == 0.05 and tr.cfg.clip_grad_norm and tr.cfg.max_grad_norm == 1.0
+        assert tr.policy.std_fn(torch.tensor(50.0)).item() == pytest.approx(1.2)
+        assert tr.policy_builder.graph_levels == ("internal", "agent", "task") and tr.env.cfg.num_grippers == 2
+    if name == "rigid_sliding_multi_hepi_trpl":
+        assert tr.cfg.entropy_coef == 0.0005
+    if rope:
+        # both rope configs: 200 envs x 200 steps, minibatches of 200, and closing's projection bounds
+        links, coeff, cov_bound = {"rope_closing_hepi_trpl": (40, 4.0, 0.001), "rope_shaping_hepi_trpl": (80, None, None)}[name]
         assert full["env"]["num_envs"] == 200 and full["collector"]["frames_per_batch"] == 200 * 200
         assert full["algorithm"]["objective"]["mini_batch_size"] == 200
         if coeff is not None:
-            assert full["algorithm"]["projection"]["trust_region_coeff"] == coeff
-            assert full["algorithm"]["projection"]["cov_bound"] == cov_bound
-        tr = config.trainer_from_config(config.load_config(name, overrides=small), device="cpu")
-        assert isinstance(tr.env, RopeEnv) and tr.env.cfg.num_envs == 200 and tr.env.cfg.num_links == 10
-        assert tr.cfg.steps_per_batch == 200 and tr.cfg.mini_batch_size == 200
+            assert proj["trust_region_coeff"] == coeff and proj["cov_bound"] == cov_bound
+        assert tr.env.cfg.num_links == 10 and tr.cfg.steps_per_batch == 200 and tr.cfg.mini_batch_size == 200
         assert tr.policy_builder.graph_levels == ("internal", "agent", "task")
         assert make_env(full["task"], num_envs=1, device="cpu").cfg.num_links == links
-        proj = full["algorithm"]["projection"]
-        assert tr.projection.trust_region_coeff == proj["trust_region_coeff"] and tr.projection.cov_bound == proj["cov_bound"]
 
 
 @pytest.mark.parametrize("entry", [config.trainer_from_config, build_agent, make_env, ClothEnv.__init__, RigidEnv.__init__,

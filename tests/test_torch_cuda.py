@@ -405,3 +405,81 @@ def test_velocity_pass_on_the_card_matches_cpu(cuda_device):
         sc, _ = cpu.step(sc, action)
     assert (sg.scene.bodies.pos.cpu() - sc.scene.bodies.pos).abs().max().item() <= 1e-5
     assert (sg.scene.bodies.lin_vel.cpu() - sc.scene.bodies.lin_vel).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------- the baseline models on the card
+
+SMALL_MODEL = {"env": {"num_envs": 4, "kwargs": {"warmup_steps": 0}}, "algorithm": {"latent_dim": 16, "num_ori": 4, "dtype": "float32"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["rigid_insertion_multi_hepi_trpl", "cloth_hanging_multi_hepi_trpl"])
+@pytest.mark.parametrize("model", ["empn", "transformer", "gcn", "meshgraphnet", "mlp"])
+def test_model_forward_on_the_card_matches_cpu(cuda_device, model, config):
+    """Policy distribution and value of the initial observation at 4 envs in
+    f32, the card against the CPU with the same params: within 1e-5 of each
+    output's scale (f32 sums in another order)."""
+    cfg = load_config(config, overrides={**SMALL_MODEL, "model": model})
+    gpu, cpu = trainer_from_config(cfg, device=cuda_device), trainer_from_config(cfg, device="cpu")
+    state = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu.policy.load_state_dict(gpu.policy.state_dict())
+    cpu.critic.load_state_dict(gpu.critic.state_dict())
+    from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
+
+    tobs = obs_norm_apply(state.norm, state.obs)
+    tobs_c = {k: v.cpu() for k, v in tobs.items()}
+    with torch.no_grad():
+        gpu._policy_dist(tobs)  # warm-up: cuBLAS handles and workspaces
+        torch.cuda.synchronize()
+        # the builders and every model forward (homogenize's edge-type one-hot
+        # among them) issue no host synchronisation
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d_g, v_g = gpu._policy_dist(tobs), gpu._value(tobs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        d_c, v_c = cpu._policy_dist(tobs_c), cpu._value(tobs_c)
+    for name, g, c in (("mean", d_g.mean, d_c.mean), ("std", d_g.std, d_c.std), ("value", v_g, v_c)):
+        assert g.device.type == "cuda"
+        assert (g.cpu() - c).abs().max().item() <= 1e-5 * max(c.abs().max().item(), 1e-3), (model, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["rigid_insertion_two_agents_multi_hepi_trpl", "rigid_insertion_two_agents_multi_empn_trpl",
+                                    "rigid_insertion_two_agents_multi_transformer_trpl"])
+def test_new_collects_do_not_synchronise(cuda_device, config):
+    """The two-gripper collect (the `agent` conv and the two-gripper builder)
+    with HEPi and with the homogenized models (`graphs/homogenize.py` builds
+    its edge-type one-hot on every forward) after a warm-up collect, under
+    CUDA's sync debug mode set to error."""
+    cfg = load_config(config, overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 32},
+        "algorithm": {"latent_dim": 16, "num_ori": 4},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, _, _ = trainer._collect(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, batch, _ = trainer._collect(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(batch.reward).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["cloth_hanging_multi_empn_trpl", "rigid_insertion_multi_transformer_trpl",
+                                    "rigid_insertion_two_agents_multi_hepi_trpl"])
+def test_new_train_iterations_on_the_card_are_finite(cuda_device, config):
+    """A small bf16 training iteration of each new full-width configuration."""
+    cfg = load_config(config, overrides={
+        "env": {"num_envs": 8, "kwargs": {"warmup_steps": 1, "episode_length": 4}}, "collector": {"frames_per_batch": 32},
+        "algorithm": {"objective": {"mini_batch_size": 16}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+    state, metrics = trainer.train_iteration(state)
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.models.calibration import calibrate as jax_calibrate
 from geometry_rl_tpu.models.common import MLP as JaxMLP, gather_nodes as jax_gather, scatter_mean as jax_scatter_mean, scatter_sum as jax_scatter
@@ -49,7 +50,7 @@ def agents():
         "cloth_hanging", "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4),
         env_kwargs=dict(warmup_steps=0, use_pallas_solver="tiled"), **SMALL,
     )
-    state = jtr.init(jax.random.PRNGKey(0))
+    state = jax.jit(jtr.init)(jax.random.PRNGKey(0))
     env_state, ts = jtr.env.step(state.env_state, 0.5 * jnp.ones((2, 12)))
     norm = obs_norm_update(obs_norm_update(obs_norm_init(jtr.env.obs_spec.group_dim("scalars")), state.obs), ts.obs)
     tobs = np_tree(obs_norm_apply(norm, ts.obs))
@@ -83,7 +84,7 @@ def test_graph_builders_match(agents, which):
 
 def test_policy_forward_matches(agents):
     jtr, state, tobs, ttr = agents
-    jd = jtr._policy_dist(state.actor_params, {k: jnp.asarray(v) for k, v in tobs.items()})
+    jd = jax.jit(jtr._policy_dist)(state.actor_params, {k: jnp.asarray(v) for k, v in tobs.items()})
     with torch.no_grad():
         td = ttr._policy_dist(to_torch(tobs))
     assert np.abs(np.asarray(jd.mean)).max() > 1e-2  # a non-trivial output
@@ -93,7 +94,7 @@ def test_policy_forward_matches(agents):
 
 def test_critic_forward_matches(agents):
     jtr, state, tobs, ttr = agents
-    jv = jtr._value(state.critic_params, {k: jnp.asarray(v) for k, v in tobs.items()})
+    jv = jax.jit(jtr._value)(state.critic_params, {k: jnp.asarray(v) for k, v in tobs.items()})
     with torch.no_grad():
         tv = ttr._value(to_torch(tobs))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
@@ -104,7 +105,7 @@ def test_calibrate_matches(agents):
     jtr, _, tobs, ttr = agents
     jtobs = {k: jnp.asarray(v) for k, v in tobs.items()}
     g, f = jtr.policy_builder.build(jtobs)
-    raw = jtr.policy.init(jax.random.PRNGKey(3), g, f)
+    raw = jax.jit(lambda key: jtr.policy.init(key, g, f))(jax.random.PRNGKey(3))
     want = params_from_flax(np_tree(jax_calibrate(jtr.policy, raw, g, f)))
     policy = copy.deepcopy(ttr.policy)
     policy.load_state_dict(params_from_flax(np_tree(raw)))

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.rl import gaussian as jax_gaussian
 from geometry_rl_tpu.rl.gae import gae as jax_gae

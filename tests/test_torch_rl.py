@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.rl import gaussian as jax_gaussian
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_init as jax_norm_init, obs_norm_step as jax_norm_step

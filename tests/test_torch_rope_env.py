@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import scipy.io
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.envs import make_env as jax_make_env
 from geometry_rl_tpu.envs import rope as jax_rope

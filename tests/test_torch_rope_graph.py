@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.graphs.rigid import knn_edges_np as jax_knn_edges_np
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_apply, obs_norm_init, obs_norm_step as jax_obs_norm_step, obs_norm_update
@@ -83,9 +84,9 @@ def agents(request):
     in the port's modules, and transformed obs of a stepped state."""
     task = request.param
     jtr = jax_build_agent(task, "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4), env_kwargs=ENV_KW, **SMALL)
-    state = jtr.init(jax.random.PRNGKey(0))
+    state = jax.jit(jtr.init)(jax.random.PRNGKey(0))
     action = 0.5 * jnp.ones((B, jtr.env.cfg.action_dim))
-    _, ts = jtr.env.step(state.env_state, action)
+    _, ts = jax.jit(jtr.env.step)(state.env_state, action)
     norm = obs_norm_update(obs_norm_update(obs_norm_init(jtr.env.obs_spec.group_dim("scalars")), state.obs), ts.obs)
     tobs = np_tree(obs_norm_apply(norm, ts.obs))
 
@@ -126,7 +127,7 @@ def test_graph_builders_match(agents, which, env_ids):
 
 def test_policy_forward_matches(agents):
     jtr, state, tobs, ttr = agents
-    jd = jtr._policy_dist(state.actor_params, {k: jnp.asarray(v) for k, v in tobs.items()})
+    jd = jax.jit(jtr._policy_dist)(state.actor_params, {k: jnp.asarray(v) for k, v in tobs.items()})
     with torch.no_grad():
         td = ttr._policy_dist(to_torch(tobs))
     assert np.abs(np.asarray(jd.mean)).max() > 1e-2  # a non-trivial output
@@ -136,7 +137,7 @@ def test_policy_forward_matches(agents):
 
 def test_critic_forward_matches(agents):
     jtr, state, tobs, ttr = agents
-    jv = jtr._value(state.critic_params, {k: jnp.asarray(v) for k, v in tobs.items()})
+    jv = jax.jit(jtr._value)(state.critic_params, {k: jnp.asarray(v) for k, v in tobs.items()})
     with torch.no_grad():
         tv = ttr._value(to_torch(tobs))
         # the critic pools the isolated target nodes too: moving them moves the value

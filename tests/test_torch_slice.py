@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_step as jax_obs_norm_step, obs_norm_update
 from geometry_rl_tpu.train import TrainConfig as JaxTrainConfig
@@ -49,7 +50,7 @@ def rollouts():
         "cloth_hanging", "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4),
         env_kwargs=dict(warmup_steps=0, use_pallas_solver="tiled"), **SMALL,
     )
-    js = jtr.init(jax.random.PRNGKey(1))
+    js = jax.jit(jtr.init)(jax.random.PRNGKey(1))
     norm = obs_norm_update(js.norm, js.obs)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
 
@@ -60,11 +61,12 @@ def rollouts():
     t_obs = ttr.env.observe(t_env)
 
     j_env, j_obs = js.env_state, js.obs
+    j_policy = jax.jit(jtr._policy_dist)  # jitted: far faster than op by op on the CPU
     out = []
     with torch.no_grad():
         for _ in range(STEPS):
             _, jtobs = jax_obs_norm_step(norm, j_obs, update=False)
-            j_action = jtr._policy_dist(js.actor_params, jtobs).mean
+            j_action = j_policy(js.actor_params, jtobs).mean
             j_env, jts = jtr.env.step(j_env, j_action)
             j_obs = jts.obs
 
@@ -122,8 +124,9 @@ def test_rollout_and_eval_run_on_cpu():
 def test_port_imports_no_jax(tmp_path):
     """The port on the CPU (trainer_from_config -> init -> a 2-step _collect
     -> train_iteration, then the training CLI and play on a tiny cloth run
-    with `use_pallas_solver=true`, on a tiny rigid_insertion run and on a tiny
-    rope_closing run) imports neither jax, flax, optax nor the JAX package, nor its native library."""
+    with `use_pallas_solver=true`, on a tiny rigid_insertion run, on a tiny
+    rope_closing run and on a tiny EMPN cloth run) imports neither jax, flax,
+    optax nor the JAX package, nor its native library."""
     code = (
         "import sys, json, torch\n"
         "from geometry_rl_torch.config import load_config, trainer_from_config\n"
@@ -155,9 +158,16 @@ def test_port_imports_no_jax(tmp_path):
         "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '6', "
         "'--success-threshold', '0.1', '--device', 'cpu'])\n"
         "assert 0.0 <= res['0']['success_rate'] <= 1.0\n"
+        "run = cli.main(['--config', 'cloth_hanging_multi_empn_trpl', '--device', 'cpu', '--override', "
+        "'env.num_envs=2', 'env.kwargs.warmup_steps=1', 'collector.frames_per_batch=4', 'collector.total_frames=4', "
+        f"'algorithm.latent_dim=8', 'algorithm.num_ori=4', 'algorithm.objective.mini_batch_size=2', 'logger.log_dir={tmp_path}/empn'])\n"
+        "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '2', '--device', 'cpu'])\n"
+        "from geometry_rl_torch import models\n"
+        "empn = trainer_from_config(load_config('cloth_hanging_multi_empn_trpl', overrides={'env': {'num_envs': 2}}), device='cpu')\n"
+        "assert type(empn.policy.backbone) is models.PonitaGCN\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'geometry_rl_tpu'))))\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, **test_torch_common.SUBPROCESS_THREADS}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

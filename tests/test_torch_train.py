@@ -31,6 +31,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
 
 from geometry_rl_tpu.rl.gae import gae as jax_gae
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_step as jax_obs_norm_step
