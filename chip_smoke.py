@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths and its EMPN and Transformer paths on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, and clipped PPO, KL-penalty PPO and PAPI on one GPU.
 
     python3 chip_smoke.py
 
@@ -26,8 +26,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
      the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times.
   5. the rollout on a small input (4 envs, f32): 3 deterministic steps on the
-     card against the same steps on the CPU, where the solve is the plain
-     version.
+     card, each also taken by the CPU (where the solve is the plain version)
+     from a copy of the card's state: actions, rewards and particle positions
+     within SLICE_TOL of their scale. The CPU's free run of the same 3 steps
+     is printed beside, not gated.
   6. training at full width through the CLI (`train.cli.main`, --device cuda,
      env.kwargs.use_pallas_solver=true, one iteration of 100 envs x 100 steps,
      5 epochs x 50 minibatches of 200): metrics.jsonl has a finite row with
@@ -39,9 +41,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
   8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
      envs, f32, the same batch, params and permutation: first-minibatch
      gradients within 1e-4 of their global norm, params within 1e-5.
-  9. the rigid_insertion rollout on a small input (4 envs, f32): 3
-     deterministic steps on the card against the CPU, actions, rewards and
-     body positions within SLICE_TOL of their scale.
+  9. the rigid_insertion rollout on a small input (4 envs, f32), as phase 5:
+     actions, rewards and body positions within SLICE_TOL of their scale.
  10. rigid_insertion training at full width through the CLI
      (rigid_insertion_multi_hepi_trpl: 1000 envs x 100 steps, latent 64, 16
      orientations, bf16 activations, 5 epochs x 100 minibatches of 1000; one
@@ -58,9 +59,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
      "tiled" env, both advancing the same state each step; particle and
      gripper positions within 2e-4, and the `False` env launches neither
      kernel. A second, independent plain path that holds K2's port.
- 14. rope_closing and rope_shaping on a small input (4 envs, f32): 3
-     deterministic steps on the card against the CPU, actions, rewards, link
-     and gripper positions within SLICE_TOL of their scale.
+ 14. rope_closing and rope_shaping on a small input (4 envs, f32), as phase
+     5: actions, rewards, link and gripper positions within SLICE_TOL of
+     their scale.
  15. rope_closing training at full width through the CLI
      (rope_closing_hepi_trpl: 200 envs x 200 steps, 40 links, latent 64, 16
      orientations, the config's dtype, 5 epochs x 200 minibatches of 200; one
@@ -74,20 +75,40 @@ Phases, each printing a line; any failure raises and exits non-zero:
      the checks of phase 10, K2's port ran exactly 2 x (10 + 100) = 220 times
      (solver mode "auto") and K1's never. Peak device memory of the iteration.
  19. Transformer training at full width through the CLI
-     (rigid_insertion_multi_transformer_trpl: 1000 envs x 100 steps, 5 epochs
-     x 100 minibatches of 1000; one iteration): the checks of phase 10.
+     (rigid_insertion_multi_transformer_trpl: 1000 envs x 100 steps; one
+     iteration, its update cut in depth to 1 epoch of 100 minibatches of 1000,
+     from the YAML's 5, for the script's time): the checks of phase 10.
  20. two-gripper HEPi training at full width through the CLI
-     (rigid_insertion_two_agents_multi_hepi_trpl: 1000 envs, the std floor
-     and cap and the gradient clip of its YAML; one iteration): the checks of
-     phase 10; then `train.play` on that run.
- 21. every other model on a small input (4 envs, f32): 3 deterministic steps
-     on the card against the CPU within SLICE_TOL, for empn, transformer,
-     gcn, meshgraphnet and mlp on rigid_insertion and empn and transformer on
-     cloth_hanging.
+     (rigid_insertion_two_agents_multi_hepi_trpl: 1000 envs x 100 steps, the
+     std floor and cap and the gradient clip of its YAML; one iteration, 1
+     epoch as phase 19): the checks of phase 10; then `train.play` on that
+     run.
+ 21. every other model on a small input (4 envs, f32), as phase 5: empn,
+     transformer, gcn, meshgraphnet and mlp on rigid_insertion and empn and
+     transformer on cloth_hanging.
  22. `train/profile.py`'s update window (10 minibatch steps) on the EMPN
      cloth config, the Transformer rigid config and the two-gripper HEPi
      config: ms and device kernels per minibatch step, by part of the step,
      the device's idle share and the window's peak device memory.
+ 23. KL-penalty PPO at full width through the CLI (RIGID_CONFIG with
+     algo=kl_ppo, kl_beta_interval=iteration; one iteration): finite rows with
+     the JAX package's kl_ppo keys, the checkpoint (kl_beta with it) restores
+     bit-exactly, beta moved by at most a factor of 2, neither cloth kernel
+     launches.
+ 24. clipped PPO at full width through the CLI (cloth_hanging_multi_hepi_trpl
+     with algo=ppo; one iteration, solver mode "auto"): `clip_fraction` in
+     the rows, K2's port exactly 220 launches and K1's none, bit-exact restore.
+ 25. PAPI at full width through the CLI (cloth_hanging_multi_transformer_trpl
+     with proj_type=papi, a non-contextual std and papi_steps; one
+     iteration): finite `papi/n_backtracks`, 0 < `papi/lr_scale` <= 1, K2's
+     port 220 launches, the checkpoint and `<checkpoints>_papi` restore
+     bit-exactly; then ms, kernels and peak device memory of the PAPI steps.
+ 26. one `_update` card vs CPU (4 envs, f32, phase 8's method) for ppo,
+     kl_ppo with both beta intervals, and TRPL with the frob, w2 and papi
+     projections; the PAPI steps after an update on the cloth Transformer;
+     the full-covariance projections and their gradients at k = 6, 12.
+ 27. `train/profile.py`'s update window (10 minibatch steps) for kl_ppo and
+     ppo on RIGID_CONFIG: ms and device kernels per minibatch step, by part.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -110,10 +131,10 @@ SOLVE_TOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate
 # the H100 SXM's published peaks (HBM bytes/s, f32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# card vs CPU over 3 steps, relative to each quantity's scale: f32 sums in
-# another order start ~1e-7 apart (relative) and contact amplifies the gap
-# about 3x per step; the untrained policy's mean actions reach ~1e2, and the
-# action-rate reward term squares them
+# card vs CPU for one step from the same state, relative to each quantity's
+# scale: f32 sums in another order are ~1e-7 apart (relative), the kernel is
+# a few 1e-6 from the plain solve; the untrained policy's mean actions reach
+# ~1e2, and the action-rate reward term squares them
 SLICE_TOL = 1e-4
 # card vs CPU over one update phase: the backward's scatter-adds use atomics
 # on the card and sum in another order than the CPU, so gradients agree to
@@ -121,6 +142,12 @@ SLICE_TOL = 1e-4
 # ~lr = 3e-4 per step, normalised by the gradient's scale
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
+# the full-covariance projections in f32 on the card and on the CPU, each
+# against the same functions in f64 on the CPU: an f32 program's own error
+# through a 60-round bisection and its implicit gradient reaches 7.4e-5 of
+# scale at k = 12 on the CPU (the covariance-only projection's gradient), so
+# two f32 programs cannot be held to each other much closer than that
+FULLCOV_TOL = 2e-4
 LIBRARIES = ("cloth_solve", "cloth_solve_env")
 # the paper's headline configuration: 1000 envs x 100 steps per iteration
 RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
@@ -128,15 +155,21 @@ RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
 ROPE_CONFIG = "rope_closing_hepi_trpl"
 # the instantiation each library launches on the main paths (self-collision off)
 MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel"}
-# the reference's per-iteration metric keys (TRPL loss and constraint metrics,
-# update, collect and CLI keys)
-REFERENCE_KEYS = (
-    "loss_objective", "loss_trust_region", "loss_entropy", "loss_critic", "entropy", "ESS",
-    "value_clip_fraction", "policy_std", "policy_std_min", "kl", "constraint", "mean_constraint",
-    "cov_constraint", "entropy_diff", "kl_max", "constraint_max", "mean_constraint_max",
-    "cov_constraint_max", "entropy_max", "entropy_diff_max", "grad_norm_actor", "grad_norm_actor_max",
-    "train/explained_variance", "train/reward", "train/episodes", "train/iteration_time", "train/frames",
+# the reference's per-iteration metric keys: the loss's own keys by algorithm
+# (TRPL with its constraint metrics, clipped PPO, KL-penalty PPO), then the
+# update's, the collect's and the CLI's
+COMMON_KEYS = (
+    "loss_objective", "loss_entropy", "loss_critic", "entropy", "ESS", "value_clip_fraction", "policy_std",
+    "policy_std_min", "grad_norm_actor", "grad_norm_actor_max", "train/explained_variance", "train/reward",
+    "train/episodes", "train/iteration_time", "train/frames",
 )
+ALGO_KEYS = {
+    "trpl": ("loss_trust_region", "kl", "constraint", "mean_constraint", "cov_constraint", "entropy_diff", "kl_max",
+             "constraint_max", "mean_constraint_max", "cov_constraint_max", "entropy_max", "entropy_diff_max"),
+    "ppo": ("clip_fraction",),
+    "kl_ppo": ("kl", "kl_mean_part", "kl_cov_part", "kl_penalty_beta", "kl_penalty_beta_max"),
+}
+PAPI_KEYS = ("papi/n_backtracks", "papi/lr_scale", "train/papi_time")
 
 
 def fail(msg: str) -> None:
@@ -235,15 +268,18 @@ def solve_inputs(env, generator):
 def train_phase(card: str, config: str, overrides, expected: dict):
     """Full-width training through the CLI (`config` with `overrides`, on the
     card): the cloth kernels must launch exactly `expected` times, every
-    metrics row is finite with the reference's keys, the params move, and the
-    last checkpoint restores bit-exactly into a fresh trainer. Returns the
-    run dir and the launch counts."""
+    metrics row is finite with the reference's keys for its algorithm, the
+    params move, and the last checkpoint restores bit-exactly into a fresh
+    trainer; with PAPI steps so does PAPI's carry (`<checkpoints>_papi`), and
+    0 < lr_scale <= 1. With kl_beta_interval "iteration", beta moves by at
+    most one factor of 2 per iteration. Returns the run dir and the launch
+    counts."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
     from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.train import cli
-    from geometry_rl_torch.train.checkpoint import STATE_FILE, latest_step, restore_checkpoint
+    from geometry_rl_torch.train.checkpoint import STATE_FILE, latest_step, restore_checkpoint, restore_tree
 
     t_phase = time.perf_counter()
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -265,8 +301,10 @@ def train_phase(card: str, config: str, overrides, expected: dict):
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
         fail(f"metrics.jsonl has {len(rows)} rows, expected {iterations}")
+    obj = cfg["algorithm"]["objective"]
+    keys = set(COMMON_KEYS) | set(ALGO_KEYS[cfg["algo"]]) | (set(PAPI_KEYS) if obj["papi_steps"] else set())
     for row in rows:
-        missing = set(REFERENCE_KEYS) - set(row)
+        missing = keys - set(row)
         if missing:
             fail(f"metrics.jsonl row {row['step']} lacks {sorted(missing)}")
         bad = [k for k, v in row.items() if not (isinstance(v, (int, float)) and abs(v) < float("inf"))]
@@ -274,8 +312,13 @@ def train_phase(card: str, config: str, overrides, expected: dict):
             fail(f"metrics.jsonl row {row['step']} has non-finite {bad}")
         print(f"[train] {config} iteration {row['step']}: {row['train/iteration_time']:.3f} s = collect "
               f"{row['train/collect_time']:.3f} s ({B * T / row['train/collect_time']:.1f} env-steps/s) + update "
-              f"{row['train/update_time']:.3f} s on {card}; reward {row['train/reward']:.3f}, kl {row['kl']:.5f}, "
-              f"ESS {row['ESS']:.4f}, explained variance {row['train/explained_variance']:.4f}")
+              f"{row['train/update_time']:.3f} s on {card}; reward {row['train/reward']:.3f}, kl "
+              f"{row.get('kl', float('nan')):.5f}, ESS {row['ESS']:.4f}, explained variance "
+              f"{row['train/explained_variance']:.4f}; algo {cfg['algo']}"
+              + "".join(f", {k} {row[k]:.5g}" for k in ("clip_fraction", "kl_penalty_beta", "train/papi_time",
+                                                        "papi/n_backtracks", "papi/lr_scale") if k in row))
+        if obj["papi_steps"] and not 0.0 < row["papi/lr_scale"] <= 1.0:
+            fail(f"papi/lr_scale {row['papi/lr_scale']} is outside (0, 1]")
 
     # a fresh trainer: its own init params, then the last checkpoint bit-exactly
     ckpt_dir = os.path.join(run_dir, "checkpoints")
@@ -311,24 +354,44 @@ def train_phase(card: str, config: str, overrides, expected: dict):
     for field, value in saved["state"].items():
         if not same(_plain(getattr(state, field)), value):
             fail(f"restored TrainState.{field} differs from the checkpoint")
+    extra = ""
+    if cfg["algo"] == "kl_ppo":
+        beta0, beta = obj["kl_beta"], state.kl_beta.item()
+        extra += f"; kl_beta {beta0} -> {beta}"
+        if obj["kl_beta_interval"] == "iteration" and not beta0 / 2 ** iterations <= beta <= beta0 * 2 ** iterations:
+            fail(f"kl_beta moved from {beta0} to {beta} in {iterations} iteration(s)")
+    if obj["papi_steps"]:
+        papi_dir = ckpt_dir + "_papi"
+        papi_state = restore_tree(papi_dir, fresh.papi_init(state), step)
+        saved_papi = torch.load(os.path.join(papi_dir, str(step), STATE_FILE), map_location="cpu", weights_only=True)
+        if not same(_plain(papi_state), saved_papi["tree"]):
+            fail("the restored PAPI state differs from its checkpoint")
+        extra += (f"; PAPI state {step} restored bit-exactly (history of {papi_state.history['mean.weight'].shape[0]}, "
+                  f"hist_len {int(papi_state.hist_len)}, lr_scale {float(papi_state.lr_scale)})")
     print(f"[train] checkpoint {step} restored bit-exactly into a fresh trainer (params, Adam states, normaliser, "
-          f"env state, generators, num_updates {state.num_updates}); policy params moved up to {moved:.3e} "
+          f"env state, generators, num_updates {state.num_updates}){extra}; policy params moved up to {moved:.3e} "
           f"from init; phase took {time.perf_counter() - t_phase:.2f} s")
     return run_dir, launches
 
 
-def update_parity_phase() -> None:
-    """Phase 8: the same batch, params and permutation through one `_update`
-    on the card and on the CPU (4 envs, f32, full-width model)."""
+def update_parity_phase(config: str = "cloth_hanging_multi_hepi_trpl", overrides: tuple = (), papi: bool = False) -> None:
+    """Phases 8 and 26: the same batch, params and permutation through one
+    `_update` (1 epoch x 2 minibatches of 20) on the card and on the CPU (4
+    envs, f32, full-width model), for `config` with `overrides`: first-
+    minibatch gradients within GRAD_TOL of their global norm, params within
+    PARAM_TOL, the KL-penalty beta equal. With `papi`, PAPI's steps then run
+    on both from the same batch: params within PARAM_TOL, the same
+    backtracks."""
     import torch
 
-    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.config import _merge, load_config, trainer_from_config
+    from geometry_rl_torch.train.cli import parse_overrides
 
     t_phase = time.perf_counter()
-    small = load_config("cloth_hanging_multi_hepi_trpl", overrides={
+    small = load_config(config, overrides=_merge({
         "env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}, "collector": {"frames_per_batch": 40},
         "algorithm": {"dtype": "float32", "objective": {"ppo_epochs": 1, "mini_batch_size": 20}},
-    })
+    }, parse_overrides(overrides)))
     gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
     g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
     g_state, batch, _ = gpu._collect(g_state)
@@ -345,12 +408,12 @@ def update_parity_phase() -> None:
         tr._permutation = lambda generator, n, dev=tr.device: perm.to(dev)
         step = tr._minibatch_step
 
-        def recording(state, mb, num_updates, tr=tr, step=step, name=name):
-            metrics = step(state, mb, num_updates)
+        def recording(state, mb, num_updates, *args, tr=tr, step=step, name=name):
+            out = step(state, mb, num_updates, *args)
             if name not in first_grads:
-                first_grads[name] = torch.cat([p.grad.reshape(-1).cpu() for p in tr.policy.parameters()]
-                                              + [p.grad.reshape(-1).cpu() for p in tr.critic.parameters()])
-            return metrics
+                first_grads[name] = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1).cpu()
+                                               for m in (tr.policy, tr.critic) for p in m.parameters()])
+            return out
 
         tr._minibatch_step = recording
     if gpu.num_minibatches != 2 or gpu.mini_batch_size != 20:
@@ -358,27 +421,111 @@ def update_parity_phase() -> None:
     g_state, g_metrics = gpu._update(g_state, batch)
     c_state, c_metrics = cpu._update(c_state, c_batch)
     torch.cuda.synchronize()
+
+    def param_err():
+        return max((v.cpu() - getattr(cpu, part).state_dict()[k]).abs().max().item()
+                   for part in ("policy", "critic") for k, v in getattr(gpu, part).state_dict().items())
+
     g, c = first_grads["cuda"], first_grads["cpu"]
     grad_err = (g - c).abs().max().item() / c.norm().item()
-    param_err = max((v.cpu() - cpu.policy.state_dict()[k]).abs().max().item() for k, v in gpu.policy.state_dict().items())
-    param_err = max(param_err, max((v.cpu() - cpu.critic.state_dict()[k]).abs().max().item()
-                                   for k, v in gpu.critic.state_dict().items()))
-    print(f"[update] one update phase (1 epoch x 2 minibatches of 20, 4 envs, f32), card vs CPU: first-minibatch "
-          f"gradients max |diff| / global norm = {grad_err:.3e} (tol {GRAD_TOL}), params after max |diff| = "
-          f"{param_err:.3e} (tol {PARAM_TOL}); loss_critic {g_metrics['loss_critic'].item():.5f} vs "
-          f"{c_metrics['loss_critic'].item():.5f}; phase took {time.perf_counter() - t_phase:.2f} s")
+    update_err = param_err()
+    what = f"{config}" + (f" with {' '.join(overrides)}" if overrides else "")
+    beta = "" if g_state.kl_beta is None else f"; kl_beta {g_state.kl_beta.item()} vs {c_state.kl_beta.item()}"
+    print(f"[update] {what}: one update phase (1 epoch x 2 minibatches of 20, 4 envs, f32), card vs CPU: first-"
+          f"minibatch gradients max |diff| / global norm = {grad_err:.3e} (tol {GRAD_TOL}), params after max |diff| = "
+          f"{update_err:.3e} (tol {PARAM_TOL}); loss_critic {g_metrics['loss_critic'].item():.5f} vs "
+          f"{c_metrics['loss_critic'].item():.5f}{beta}")
     if not grad_err <= GRAD_TOL:
         fail(f"the card's gradients disagree with the CPU's: {grad_err}")
-    if not param_err <= PARAM_TOL:
-        fail(f"the card's params after the update disagree with the CPU's: {param_err}")
+    if not update_err <= PARAM_TOL:
+        fail(f"the card's params after the update disagree with the CPU's: {update_err}")
+    if g_state.kl_beta is not None and g_state.kl_beta.item() != c_state.kl_beta.item():
+        fail(f"the card's kl_beta {g_state.kl_beta.item()} differs from the CPU's {c_state.kl_beta.item()}")
+    if papi:
+        g_papi, g_m = gpu._papi_steps(g_state, batch, gpu.papi_init(g_state))
+        c_papi, c_m = cpu._papi_steps(c_state, c_batch, cpu.papi_init(c_state))
+        torch.cuda.synchronize()
+        papi_err = param_err()
+        print(f"[update] {what}: PAPI steps on the same batch, card vs CPU: params max |diff| = {papi_err:.3e} "
+              f"(tol {PARAM_TOL}); backtracks {g_m['papi/n_backtracks'].item():.0f} vs {c_m['papi/n_backtracks'].item():.0f}")
+        if not papi_err <= PARAM_TOL or g_m["papi/n_backtracks"].item() != c_m["papi/n_backtracks"].item():
+            fail(f"the card's PAPI steps disagree with the CPU's: {papi_err}, {g_m} vs {c_m}")
+    print(f"[update] phase took {time.perf_counter() - t_phase:.2f} s")
+
+
+def fullcov_parity_phase(card: str, batch: int = 256) -> None:
+    """Phase 26's second half: the full-covariance projections on seeded SPD
+    batches at the tasks' action widths (k = 6, 12), in f32 on the card and
+    on the CPU: outputs and the gradients of a seeded linear function of them,
+    each within FULLCOV_TOL of max(1, scale) of the CPU's f64 result; the card
+    against the CPU in f32 is printed beside it."""
+    import numpy as np
+    import torch
+
+    from geometry_rl_torch.rl.projections import fullcov
+
+    t_phase = time.perf_counter()
+    worst, worst_pair = 0.0, 0.0
+    for k in (6, 12):
+        rng = np.random.default_rng(k)
+
+        def spd(scale, shift):
+            a = rng.normal(size=(batch, k, k)) * scale
+            return a @ a.transpose(0, 2, 1) / k + shift * np.eye(k)
+
+        old_cov = spd(1.0, 0.5)
+        cov = old_cov + spd(0.3, 0.05)
+        old_mean = rng.normal(size=(batch, k))
+        mean = old_mean + 0.3 * rng.normal(size=(batch, k))
+        sqrt, old_sqrt = spd(0.5, 0.5), spd(0.5, 0.5)  # symmetric positive definite roots
+        cases = {
+            "kl_full_cov_projection": (lambda c, o: fullcov.kl_full_cov_projection(c, o, 0.02), (cov, old_cov), (0,)),
+            "kl_full_joint_projection": (lambda m, c, om, oc: fullcov.kl_full_joint_projection(m, c, om, oc, 0.1),
+                                         (mean, cov, old_mean, old_cov), (0, 1)),
+            "w2_non_commutative_projection": (lambda m, s, om, os: fullcov.w2_non_commutative_projection(m, s, om, os, 0.2),
+                                              (mean, sqrt, old_mean, old_sqrt), (0, 1)),
+            "w2_non_commutative_parts(scale_prec)": (
+                lambda m, s, om, os: fullcov.w2_non_commutative_parts(m, s, om, os, scale_prec=True),
+                (mean, sqrt, old_mean, old_sqrt), (0, 1)),
+        }
+        for name, (fn, inputs, diff) in cases.items():
+            results = {}
+            for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+                ins = [torch.tensor(np.asarray(x, np.float32), dtype=dtype, device=dev, requires_grad=i in diff)
+                       for i, x in enumerate(inputs)]
+                outs = fn(*ins)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                g = torch.Generator().manual_seed(1)
+                sum((o * torch.randn(o.shape, generator=g).to(dev, dtype)).sum() for o in outs).backward()
+                results[dev, dtype] = [o.detach().cpu().double() for o in outs] + [ins[i].grad.cpu().double() for i in diff]
+
+            def err(a, b):
+                return max((x - y).abs().max().item() / max(1.0, y.abs().max().item()) for x, y in zip(a, b))
+
+            ref = results["cpu", torch.float64]
+            card_err, cpu_err = err(results["cuda", torch.float32], ref), err(results["cpu", torch.float32], ref)
+            worst = max(worst, card_err, cpu_err)
+            worst_pair = max(worst_pair, err(results["cuda", torch.float32], results["cpu", torch.float32]))
+            if not max(card_err, cpu_err) <= FULLCOV_TOL:
+                fail(f"{name} at k={k} in f32 is {card_err} (card) / {cpu_err} (CPU) from f64")
+    print(f"[fullcov] the full-covariance projections and their gradients at k = 6 and 12 ({batch} matrices) in f32, "
+          f"card and CPU against f64 on the CPU: max |diff| / max(1, scale) = {worst:.3e} (tol {FULLCOV_TOL}); card vs "
+          f"CPU in f32 {worst_pair:.3e}; phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
 
 
 def parity_phase(card: str, config: str, positions: dict, model: str = "") -> None:
     """The slice of `config` (with its `model` replaced where one is given) on
-    a small input (4 envs, f32): 3 deterministic
-    steps on the card against the same steps on the CPU, from the same state,
-    normaliser and params; actions, rewards and each `positions[name](env_state)`
-    within SLICE_TOL of each quantity's scale."""
+    a small input (4 envs, f32), the same params and normaliser on both: 3
+    deterministic steps of the card, each also taken by the CPU from a copy
+    of the card's state before it. The CPU's mean action on that state, and
+    its reward and each `positions[name](env_state)` after stepping it with
+    the card's action, within SLICE_TOL of each quantity's scale.
+
+    The CPU also runs the 3 steps free, on its own states and actions; that
+    gap is printed and not gated. On cloth it compounds: the kernel's
+    few-1e-6 position gap to the plain solve becomes a 1/dt larger velocity
+    observation, and the free run's actions were 3.8e-6 and 1.2e-4 of scale
+    apart in two runs of one tree on the H100."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
@@ -394,25 +541,35 @@ def parity_phase(card: str, config: str, positions: dict, model: str = "") -> No
     g_state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
     cpu.policy.load_state_dict(gpu.policy.state_dict())
     env_state, norm_g = g_state.env_state, g_state.norm
-    c_state = moved(env_state, "cpu")._replace(generator=torch.Generator().manual_seed(0))
+    step_gen = torch.Generator().manual_seed(0)
+    free_state = moved(env_state, "cpu")._replace(generator=torch.Generator().manual_seed(0))
     norm_c = moved(norm_g, "cpu")
 
+    def action(trainer, norm, state):
+        return trainer._policy_dist(obs_norm_step(norm, trainer.env.observe(state), update=False)[1]).mean
+
+    def record(into, pairs):
+        for name, (g, c) in pairs.items():
+            into[name] = max(into[name], (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item()))
+
     worst = {"action": 0.0, "reward": 0.0, **{name: 0.0 for name in positions}}
+    free = dict(worst)
     with torch.no_grad():
         for _ in range(3):
-            _, tobs_g = obs_norm_step(norm_g, gpu.env.observe(env_state), update=False)
-            _, tobs_c = obs_norm_step(norm_c, cpu.env.observe(c_state), update=False)
-            a_g, a_c = gpu._policy_dist(tobs_g).mean, cpu._policy_dist(tobs_c).mean
+            c_state = moved(env_state, "cpu")._replace(generator=step_gen)
+            a_g, a_c, a_free = action(gpu, norm_g, env_state), action(cpu, norm_c, c_state), action(cpu, norm_c, free_state)
             env_state, ts_g = gpu.env.step(env_state, a_g)
-            c_state, ts_c = cpu.env.step(c_state, a_c)
-            pairs = {"action": (a_g, a_c), "reward": (ts_g.reward, ts_c.reward),
-                     **{name: (get(env_state), get(c_state)) for name, get in positions.items()}}
-            for name, (g, c) in pairs.items():
-                rel = (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item())
-                worst[name] = max(worst[name], rel)
-    print(f"[parity] {config}: 4 envs, 3 deterministic steps, card vs CPU: max |diff| / max(1, max |CPU value|): "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (tol {SLICE_TOL}); phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+            c_state, ts_c = cpu.env.step(c_state, a_g.cpu())
+            free_state, ts_free = cpu.env.step(free_state, a_free)
+            step_gen = c_state.generator
+            record(worst, {"action": (a_g, a_c), "reward": (ts_g.reward, ts_c.reward),
+                           **{name: (get(env_state), get(c_state)) for name, get in positions.items()}})
+            record(free, {"action": (a_g, a_free), "reward": (ts_g.reward, ts_free.reward),
+                          **{name: (get(env_state), get(free_state)) for name, get in positions.items()}})
+    print(f"[parity] {config}: 4 envs, 3 deterministic steps, each from the card's state, card vs CPU: max |diff| / "
+          f"max(1, max |CPU value|): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {SLICE_TOL}); the CPU run free (not gated): " + ", ".join(f"{k} {v:.3e}" for k, v in free.items())
+          + f"; phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
     if not max(worst.values()) <= SLICE_TOL:
         fail(f"the {config} slice on the card disagrees with the CPU: {worst}")
 
@@ -499,26 +656,49 @@ def profile_phase(card: str, config: str, steps: int = 2) -> None:
     print(f"[profile] phase took {time.perf_counter() - t_phase:.2f} s")
 
 
-def update_profile_phase(card: str, config: str, collect_steps: int, minibatches: int = 10) -> dict:
-    """Phase 22: `train/profile.py`'s update window on `config` at full
-    width, on a batch of `collect_steps` control steps (enough for
-    `minibatches` minibatches; the window needs no whole iteration)."""
+def update_profile_phase(card: str, config: str, collect_steps: int, minibatches: int = 10, overrides: tuple = ()) -> dict:
+    """Phases 22 and 27: `train/profile.py`'s update window on `config` (with
+    `overrides`) at full width, on a batch of `collect_steps` control steps
+    (enough for `minibatches` minibatches; the window needs no whole
+    iteration)."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.cli import parse_overrides
     from geometry_rl_torch.train.profile import update_window
 
     t_phase = time.perf_counter()
-    cfg = load_config(config)
+    cfg = load_config(config, parse_overrides(overrides))
     cfg["collector"]["frames_per_batch"] = collect_steps * cfg["env"]["num_envs"]
     trainer = trainer_from_config(cfg, device="cuda")
     if trainer.num_minibatches < minibatches:
         fail(f"{collect_steps} control steps of {config} hold {trainer.num_minibatches} minibatches, {minibatches} needed")
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
-    stats = update_window(trainer, state, minibatches, tag=f"{config}: ")
+    tag = f"{config}{' ' + ' '.join(overrides) if overrides else ''}: "
+    stats = update_window(trainer, state, minibatches, tag=tag)
     if not stats["kernels_per_minibatch"] > 0:
         fail(f"the profiler recorded no device kernels in the {config} update")
     print(f"[profile] {config}: update window on {card}; phase took {time.perf_counter() - t_phase:.2f} s")
+    return stats
+
+
+def papi_window_phase(card: str, config: str, overrides) -> dict:
+    """Phase 25's second half: `train/profile.py`'s `papi_window` at full
+    width: ms, device kernels and peak device memory of one call of PAPI's
+    post-update steps on a collected batch."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.cli import parse_overrides
+    from geometry_rl_torch.train.profile import papi_window
+
+    t_phase = time.perf_counter()
+    cfg = load_config(config, parse_overrides(overrides))
+    trainer = trainer_from_config(cfg, device="cuda")
+    stats = papi_window(trainer, trainer.init(torch.Generator(device="cuda").manual_seed(0)), tag=f"{config}: ")
+    if not stats["papi_kernels"] > 0:
+        fail("the profiler recorded no device kernels in the PAPI steps")
+    print(f"[profile] {config}: PAPI steps on {card}; phase took {time.perf_counter() - t_phase:.2f} s")
     return stats
 
 
@@ -760,12 +940,13 @@ def main() -> int:
     shutil.rmtree(os.path.dirname(run_dir))
 
     # ---- 19. the Transformer on rigid_insertion at full width ----------------
-    run_dir, _ = train_phase(card, "rigid_insertion_multi_transformer_trpl", ["collector.total_frames=100000"],
-                             {"cloth_solve": 0, "cloth_solve_env": 0})
+    # 1 epoch of the update, not the YAML's 5: depth cut for the script's time
+    short = ["collector.total_frames=100000", "algorithm.objective.ppo_epochs=1"]
+    run_dir, _ = train_phase(card, "rigid_insertion_multi_transformer_trpl", short, {"cloth_solve": 0, "cloth_solve_env": 0})
     shutil.rmtree(os.path.dirname(run_dir))
 
     # ---- 20. two-gripper HEPi at full width, then play ------------------------
-    run_dir, _ = train_phase(card, "rigid_insertion_two_agents_multi_hepi_trpl", ["collector.total_frames=100000"],
+    run_dir, _ = train_phase(card, "rigid_insertion_two_agents_multi_hepi_trpl", short,
                              {"cloth_solve": 0, "cloth_solve_env": 0})
     play_phase(card, run_dir)
 
@@ -780,6 +961,38 @@ def main() -> int:
     update_profile_phase(card, "rigid_insertion_multi_transformer_trpl", collect_steps=10)  # 10 minibatches of 1000
     update_profile_phase(card, "rigid_insertion_two_agents_multi_hepi_trpl", collect_steps=10)
 
+    # ---- 23. KL-penalty PPO (beta adapted per iteration) at full width -------
+    run_dir, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000", "algo=kl_ppo",
+                                                  "algorithm.objective.kl_beta_interval=iteration"],
+                             {"cloth_solve": 0, "cloth_solve_env": 0})
+    shutil.rmtree(os.path.dirname(run_dir))
+
+    # ---- 24. clipped PPO on cloth_hanging at full width (K2's port) ---------
+    run_dir, ppo_launches = train_phase(card, "cloth_hanging_multi_hepi_trpl", ["collector.total_frames=10000", "algo=ppo"],
+                                        {"cloth_solve": 2 * (10 + 100), "cloth_solve_env": 0})
+    shutil.rmtree(os.path.dirname(run_dir))
+
+    # ---- 25. PAPI on the cloth Transformer at full width (K2's port) --------
+    papi_overrides = ["algorithm.projection.proj_type=papi", "algorithm.policy.contextual_std=false",
+                      "algorithm.objective.papi_steps=true"]
+    run_dir, papi_launches = train_phase(card, "cloth_hanging_multi_transformer_trpl",
+                                         ["collector.total_frames=10000", *papi_overrides],
+                                         {"cloth_solve": 2 * (10 + 100), "cloth_solve_env": 0})
+    shutil.rmtree(os.path.dirname(run_dir))
+    papi_window_phase(card, "cloth_hanging_multi_transformer_trpl", papi_overrides)
+
+    # ---- 26. the new algorithms and projections, card vs CPU ------------------
+    for overrides in (["algo=ppo"], ["algo=kl_ppo"], ["algo=kl_ppo", "algorithm.objective.kl_beta_interval=iteration"],
+                      ["algorithm.projection.proj_type=frob"], ["algorithm.projection.proj_type=w2"],
+                      ["algorithm.projection.proj_type=papi"]):
+        update_parity_phase(overrides=tuple(overrides))
+    update_parity_phase("cloth_hanging_multi_transformer_trpl", tuple(papi_overrides), papi=True)
+    fullcov_parity_phase(card)
+
+    # ---- 27. where the update time of ppo and kl_ppo goes ----------------------
+    for algo in ("kl_ppo", "ppo"):
+        update_profile_phase(card, RIGID_CONFIG, collect_steps=10, overrides=(f"algo={algo}",))
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",
          "replaces": f"geometry_rl_tpu/sim/pallas_cloth.py:{line}", "launches": n_launch,
@@ -787,7 +1000,8 @@ def main() -> int:
          "plain_ms": kernel_stats[(name, 100, False)][2], "bound_ms": kernel_stats[(name, 100, False)][3],
          "bound_by": kernel_stats[(name, 100, False)][4], "library_ms": None,
          "ms_b1000": kernel_stats[(name, 1000, False)][1], "bound_ms_b1000": kernel_stats[(name, 1000, False)][3],
-         "ms_self_b4": kernel_stats[(name, 4, True)][1], "launches_empn_training": empn_launches[name]}
+         "ms_self_b4": kernel_stats[(name, 4, True)][1], "launches_empn_training": empn_launches[name],
+         "launches_ppo_training": ppo_launches[name], "launches_papi_training": papi_launches[name]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ]}))
     print(smi)

@@ -187,10 +187,10 @@ def trainer_from_config(cfg: Dict, device="cuda"):
     num_envs = cfg["env"]["num_envs"]
     obj = cfg["algorithm"]["objective"]
     opt = cfg["algorithm"]["optim"]
-    if cfg["algo"] != "trpl":
-        raise NotImplementedError(f"algo {cfg['algo']!r} (its loss) is not ported yet (ROADMAP.md Queue 1 item 10)")
-    if obj.get("papi_steps", False):
-        raise NotImplementedError("PAPI post-update steps are not ported yet (ROADMAP.md Queue 1 item 10)")
+    beta_interval = obj.get("kl_beta_interval", "minibatch")
+    if beta_interval not in ("minibatch", "iteration"):
+        # any other value would silently fall back to the per-minibatch controller
+        raise ValueError(f"kl_beta_interval must be 'minibatch' or 'iteration', got {beta_interval!r}")
     train_cfg = TrainConfig(
         algo=cfg["algo"],
         steps_per_batch=max(1, cfg["collector"]["frames_per_batch"] // num_envs),
@@ -211,6 +211,15 @@ def trainer_from_config(cfg: Dict, device="cuda"):
         entropy_bonus=obj["entropy_bonus"],
         max_grad_norm=obj["max_grad_norm"],
         clip_grad_norm=obj["clip_grad_norm"],
+        dtarg=obj.get("dtarg", 0.01),
+        kl_beta=obj.get("kl_beta", 1.0),
+        kl_increment=obj.get("kl_increment", 2.0),
+        kl_decrement=obj.get("kl_decrement", 0.5),
+        kl_beta_interval=beta_interval,
+        papi_steps=obj.get("papi_steps", False),
+        papi_history=obj.get("papi_history", 8),
+        papi_iters=obj.get("papi_iters", 20),
+        papi_lr_decay=obj.get("papi_lr_decay", 0.9),
     )
     policy = cfg["algorithm"]["policy"]
     proj = cfg["algorithm"]["projection"]

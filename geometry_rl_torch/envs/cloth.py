@@ -336,6 +336,12 @@ class ClothEnv:
         self.inv_all = torch.cat([self.particle_spec.inv_mass, self.body_spec.inv_mass.expand(B, G)], dim=1).contiguous()
         self.att_body_w = self.body_spec.inv_mass.expand(B, G).contiguous()
         self.gravity_dv = (cfg.dt * torch.tensor(GRAVITY, device=device) * (self.particle_spec.inv_mass > 0)[..., None]).contiguous()
+        # constants of the reset and the substep, made once: a tensor made from
+        # host values on the card is a copy that synchronises with the host
+        self.hanger_base = torch.tensor(cfg.hanger_pos, device=device)
+        self.cloth_center = torch.tensor(cfg.cloth_center, device=device)
+        self.body_lin_damp = torch.exp(-self.body_spec.lin_damping * cfg.dt)[:, None]  # [G, 1]
+        self.part_damp = torch.exp(torch.tensor(-self.particle_spec.lin_damping * cfg.dt, device=device))
 
     def _build_obs_spec(self) -> ObsSpec:
         E = self.obs_edges.shape[0]
@@ -366,11 +372,11 @@ class ClothEnv:
         def uniform(lo, hi):
             return sample_uniform(generator, lo, hi, (B,), dev)
 
-        hanger = torch.tensor(cfg.hanger_pos, device=dev) + torch.stack(
+        hanger = self.hanger_base + torch.stack(
             [uniform(-cfg.hanger_xz_range, cfg.hanger_xz_range), zeros, uniform(-cfg.hanger_xz_range, cfg.hanger_xz_range)],
             dim=-1,
         )
-        center = torch.tensor(cfg.cloth_center, device=dev)
+        center = self.cloth_center
         particles = self.init_particles.expand(B, P, 3)
         cubes = particles[:, self.corner_indices.long()]
 
@@ -456,8 +462,7 @@ class ClothEnv:
         cfg = self.cfg
         dt = cfg.dt
         P = N_PARTICLES
-        body_lin_damp = torch.exp(-self.body_spec.lin_damping * dt)[:, None]  # [G, 1]
-        part_damp = torch.exp(torch.tensor(-self.particle_spec.lin_damping * dt, device=self.device))
+        body_lin_damp, part_damp = self.body_lin_damp, self.part_damp
         hanger_pos = hanger_pos.contiguous()
         for _ in range(cfg.decimation):
             bodies, parts = scene.bodies, scene.particles

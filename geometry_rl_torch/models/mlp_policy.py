@@ -26,6 +26,7 @@ class MLPGaussianPolicy(ActivatedMLP):
                  max_std: Optional[float] = None, device=None):
         super().__init__(in_dim, hidden_dims, activation, device=device)
         self.contextual_std = contextual_std
+        self.init_std, self.minimal_std = init_std, minimal_std
         self.std_fn = make_std_fn(init_std, minimal_std, max_std)
         head_init = orthogonal_init(0.01)
         self.mean = Dense(self.out_dim, action_dim, kernel_init=head_init, device=device)

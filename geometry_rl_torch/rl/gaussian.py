@@ -1,5 +1,6 @@
-"""Diagonal-Gaussian distributions (port of `geometry_rl_tpu/rl/gaussian.py`
-without the Frobenius and W2 parts): `(mean [..., K], std [..., K])` vectors."""
+"""Diagonal-Gaussian distributions (port of `geometry_rl_tpu/rl/gaussian.py`):
+`(mean [..., K], std [..., K])` vectors, with the (mean part, cov part)
+decompositions of the KL, Frobenius and commutative W2 divergences."""
 
 from __future__ import annotations
 
@@ -57,3 +58,28 @@ def kl_parts(p: DiagGaussian, q: DiagGaussian) -> Tuple[torch.Tensor, torch.Tens
 def kl(p: DiagGaussian, q: DiagGaussian) -> torch.Tensor:
     m, c = kl_parts(p, q)
     return m + c
+
+
+def frobenius_parts(p: DiagGaussian, q: DiagGaussian, scale_prec: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean part, cov part) of the Frobenius divergence: the mean part is
+    the Mahalanobis distance under q's covariance with `scale_prec`, else the
+    squared Euclidean one; the cov part is ||cov_q - cov_p||_F^2."""
+    if scale_prec:
+        mean_part = maha(p.mean, q.mean, q.std)
+    else:
+        mean_part = ((q.mean - p.mean) ** 2).sum(-1)
+    diff = q.std**2 - p.std**2
+    return mean_part, (diff * diff).sum(-1)
+
+
+def wasserstein_parts(p: DiagGaussian, q: DiagGaussian, scale_prec: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean part, cov part) of the commutative W2 divergence (diagonal
+    covariances: the matrix square root is the std)."""
+    if scale_prec:
+        mean_part = maha(p.mean, q.mean, q.std)
+        c = (p.std / q.std) ** 2
+        cov_part = (1.0 + c - 2.0 * (p.std / q.std)).sum(-1)
+    else:
+        mean_part = ((q.mean - p.mean) ** 2).sum(-1)
+        cov_part = (q.std**2 + p.std**2 - 2.0 * q.std * p.std).sum(-1)
+    return mean_part, cov_part

@@ -1,13 +1,15 @@
-"""On-policy losses (port of `geometry_rl_tpu/rl/losses.py`): the TRPL loss.
+"""On-policy losses (port of `geometry_rl_tpu/rl/losses.py`): TRPL
+(trust-region projected), clipped PPO and adaptive KL-penalty PPO.
 
 Losses take the already-computed policy outputs (DiagGaussian) and stay
-model-agnostic. Clipped PPO and adaptive KL-penalty PPO are not ported yet
-(ROADMAP.md Queue 1 item 10).
+model-agnostic.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import math
 
 import torch
 
@@ -114,4 +116,139 @@ def trpl_loss(
     }
     # constraint metrics of the new dist against its projection
     metrics.update(projection.compute_metrics(new_dist, proj_dist))
+    return actor_loss, critic_loss, metrics
+
+
+# the band that kl_pen_ppo_loss clamps its adaptive beta to
+KL_PEN_BETA_MIN = 1e-2
+KL_PEN_BETA_MAX = 1e6
+
+
+def adapt_kl_beta(beta: torch.Tensor, kl: torch.Tensor, dtarg: float, increment: float, decrement: float) -> torch.Tensor:
+    """beta * increment where kl > 1.5 dtarg, * decrement where kl < dtarg /
+    1.5, clamped to [KL_PEN_BETA_MIN, KL_PEN_BETA_MAX]. In f32 beta is
+    multiplied by `decrement` once per minibatch, so a long low-KL stretch
+    would underflow it to exactly 0, which is absorbing; the floor keeps it
+    positive and the ceiling finite."""
+    new_beta = torch.where(kl > dtarg * 1.5, beta * increment, torch.where(kl < dtarg / 1.5, beta * decrement, beta))
+    return torch.clamp(new_beta, KL_PEN_BETA_MIN, KL_PEN_BETA_MAX)
+
+
+def _critic_loss(value, inputs: LossInputs, clip_value, loss_critic_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-sample critic loss, value clip fraction); unclipped, with a clip
+    fraction of 0, where clip_value is None."""
+    if clip_value is not None:
+        return clipped_value_loss(inputs.old_value, value, inputs.value_target, clip_value, loss_critic_type)
+    return _distance_loss(value, inputs.value_target, loss_critic_type), torch.zeros((), device=value.device)
+
+
+def kl_pen_ppo_loss(
+    new_dist: DiagGaussian,
+    old_dist: DiagGaussian,
+    value: torch.Tensor,
+    inputs: LossInputs,
+    beta: torch.Tensor,
+    *,
+    dtarg: float = 0.01,
+    increment: float = 2.0,
+    decrement: float = 0.5,
+    entropy_coef: float = 0.0,
+    critic_coef: float = 1.0,
+    clip_value: Optional[float] = None,
+    loss_critic_type: str = "l2",
+    normalize_advantage: bool = True,
+    entropy_bonus: bool = False,
+    adapt: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Adaptive KL-penalty PPO: surrogate -(ratio * advantage) + beta *
+    KL(old || new), with the exact diagonal-Gaussian KL. After the loss is
+    formed, beta adapts for the next step (`adapt_kl_beta`); with
+    adapt=False (kl_beta_interval "iteration") it stays, and the trainer
+    adapts it once per iteration. The critic loss is unclipped by default
+    (clip_value=None). Returns (actor_loss, critic_loss, new_beta, metrics)."""
+    advantage = inputs.advantage
+    if normalize_advantage:
+        advantage = _normalize_advantage(advantage)
+
+    log_weight = G.log_prob(new_dist, inputs.action) - inputs.sample_log_prob
+    gain = torch.exp(log_weight) * advantage
+    # the mean / cov split says where the KL budget goes
+    kl_maha_part, kl_cov_part = G.kl_parts(old_dist, new_dist)
+    kl_mean = (kl_maha_part + kl_cov_part).mean()
+    actor_loss = -gain.mean() + beta * kl_mean
+
+    entropy = G.entropy(new_dist)
+    if entropy_bonus:
+        actor_loss = actor_loss - entropy_coef * entropy.mean()
+
+    critic_per_sample, clip_fraction = _critic_loss(value, inputs, clip_value, loss_critic_type)
+    critic_loss = critic_coef * critic_per_sample.mean()
+
+    if adapt:
+        new_beta = adapt_kl_beta(beta, kl_mean.detach(), dtarg, increment, decrement)
+    else:
+        new_beta = torch.clamp(beta, KL_PEN_BETA_MIN, KL_PEN_BETA_MAX)
+
+    metrics = {
+        "loss_objective": -gain.mean(),
+        "loss_entropy": -entropy_coef * entropy.mean() if entropy_bonus else torch.zeros((), device=value.device),
+        "loss_critic": critic_loss,
+        "entropy": entropy.mean(),
+        "ESS": _ess(log_weight),
+        "kl": kl_mean,
+        "kl_mean_part": kl_maha_part.mean(),
+        "kl_cov_part": kl_cov_part.mean(),
+        "kl_penalty_beta": beta,
+        "kl_penalty_beta_max": beta,
+        "value_clip_fraction": clip_fraction,
+        "policy_std": new_dist.std.mean(),
+        "policy_std_min": new_dist.std.min(),
+    }
+    return actor_loss, critic_loss, new_beta, metrics
+
+
+def ppo_clip_loss(
+    new_dist: DiagGaussian,
+    value: torch.Tensor,
+    inputs: LossInputs,
+    *,
+    clip_epsilon: float = 0.2,
+    entropy_coef: float = 0.005,
+    critic_coef: float = 0.5,
+    clip_value: Optional[float] = 0.2,
+    loss_critic_type: str = "l2",
+    normalize_advantage: bool = True,
+    entropy_bonus: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped PPO with value clipping. Returns (actor_loss, critic_loss,
+    metrics)."""
+    advantage = inputs.advantage
+    if normalize_advantage:
+        advantage = _normalize_advantage(advantage)
+
+    log_weight = G.log_prob(new_dist, inputs.action) - inputs.sample_log_prob
+    gain1 = torch.exp(log_weight) * advantage
+    log_weight_clip = torch.clamp(log_weight, math.log1p(-clip_epsilon), math.log1p(clip_epsilon))
+    gain2 = torch.exp(log_weight_clip) * advantage
+    loss_objective = -torch.minimum(gain1, gain2).mean()
+
+    actor_loss = loss_objective
+    entropy = G.entropy(new_dist)
+    if entropy_bonus:
+        actor_loss = actor_loss - entropy_coef * entropy.mean()
+
+    critic_per_sample, clip_fraction = _critic_loss(value, inputs, clip_value, loss_critic_type)
+    critic_loss = critic_coef * critic_per_sample.mean()
+
+    metrics = {
+        "loss_objective": loss_objective,
+        "loss_entropy": -entropy_coef * entropy.mean(),
+        "loss_critic": critic_loss,
+        "entropy": entropy.mean(),
+        "ESS": _ess(log_weight),
+        "clip_fraction": (gain2 < gain1).to(value.dtype).mean(),
+        "value_clip_fraction": clip_fraction,
+        "policy_std": new_dist.std.mean(),
+        "policy_std_min": new_dist.std.min(),
+    }
     return actor_loss, critic_loss, metrics

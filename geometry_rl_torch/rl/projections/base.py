@@ -1,10 +1,10 @@
 """Trust-region projection layers for diagonal Gaussians (port of
-`geometry_rl_tpu/rl/projections/base.py`: the identity and KL layers).
+`geometry_rl_tpu/rl/projections/base.py`): the identity, KL, Frobenius and
+W2 layers and the factory (PAPI's layer is in `papi.py`).
 
 A layer is a frozen dataclass whose `__call__(p, q, step, initial_entropy)`
 returns the projected distribution, with the optional entropy projection
-before or after the trust-region projection. The Frobenius, W2 and PAPI
-layers are not ported yet (ROADMAP.md Queue 1 item 10).
+before or after the trust-region projection.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..gaussian import DiagGaussian, entropy, kl_parts
+from ..gaussian import DiagGaussian, entropy, frobenius_parts, kl_parts, wasserstein_parts
 from .kl import kl_diag_cov_projection
 
 
@@ -141,7 +141,43 @@ class KLProjection(BaseProjection):
         return DiagGaussian(proj_mean, torch.sqrt(proj_var))
 
 
-NOT_PORTED = ("frob", "w2", "wasserstein", "w2_non_com", "papi")
+def _interpolation_weight(cov_part: torch.Tensor, eps_cov) -> torch.Tensor:
+    """eta = |sqrt(cov_part / eps_cov) - 1| [..., 1], the weight of the old
+    covariance where the cov part exceeds its bound."""
+    return torch.abs(torch.sqrt(torch.clamp(cov_part, min=1e-16) / eps_cov) - 1.0)[..., None]
+
+
+@dataclasses.dataclass(frozen=True)
+class FrobeniusProjection(BaseProjection):
+    """Frobenius projection: cov* = (cov + eta * cov_old) / (1 + eta) with
+    eta = sqrt(cov_part / eps_cov) - 1 where cov_part > eps_cov."""
+
+    def _trust_region_projection(self, p: DiagGaussian, q: DiagGaussian, eps, eps_cov) -> DiagGaussian:
+        mean_part, cov_part = frobenius_parts(p, q, scale_prec=self.scale_prec)
+        proj_mean = mean_projection(p.mean, q.mean, mean_part, eps)
+        eta = _interpolation_weight(cov_part, eps_cov)
+        proj_var = (p.std**2 + eta * q.std**2) / (1.0 + eta + 1e-16)
+        proj_std = torch.where((cov_part > eps_cov)[..., None], torch.sqrt(proj_var), p.std)
+        return DiagGaussian(proj_mean, proj_std)
+
+    def trust_region_value(self, p, q):
+        return frobenius_parts(p, q, scale_prec=self.scale_prec)
+
+
+@dataclasses.dataclass(frozen=True)
+class WassersteinProjection(BaseProjection):
+    """Commutative W2 projection: std* = (std + eta * std_old) / (1 + eta),
+    eta as in the Frobenius layer on the W2 cov part."""
+
+    def _trust_region_projection(self, p: DiagGaussian, q: DiagGaussian, eps, eps_cov) -> DiagGaussian:
+        mean_part, cov_part = wasserstein_parts(p, q, scale_prec=self.scale_prec)
+        proj_mean = mean_projection(p.mean, q.mean, mean_part, eps)
+        eta = _interpolation_weight(cov_part, eps_cov)
+        proj_std = (p.std + eta * q.std) / (1.0 + eta + 1e-16)
+        return DiagGaussian(proj_mean, torch.where((cov_part > eps_cov)[..., None], proj_std, p.std))
+
+    def trust_region_value(self, p, q):
+        return wasserstein_parts(p, q, scale_prec=self.scale_prec)
 
 
 def get_projection_layer(proj_type: str = "kl", **kwargs) -> BaseProjection:
@@ -149,8 +185,17 @@ def get_projection_layer(proj_type: str = "kl", **kwargs) -> BaseProjection:
     proj_type = proj_type.lower()
     if proj_type == "kl":
         return KLProjection(**kwargs)
-    if proj_type in NOT_PORTED:
-        raise NotImplementedError(f"projection {proj_type!r} is not ported yet (ROADMAP.md Queue 1 item 10)")
+    if proj_type == "frob":
+        return FrobeniusProjection(**kwargs)
+    if proj_type in ("w2", "wasserstein", "w2_non_com"):
+        # diagonal covariances commute, so the non-commutative W2 layer
+        # coincides with the commutative one (fullcov.py has the general case)
+        return WassersteinProjection(**kwargs)
+    if proj_type == "papi":
+        from .papi import PAPIProjection
+
+        kwargs.setdefault("entropy_first", True)
+        return PAPIProjection(**kwargs)
     if proj_type in ("", "ppo", "identity", "entropy", "none"):
         return BaseProjection(**kwargs)
     raise ValueError(f"Invalid projection type {proj_type!r}; use kl, frob, w2, papi or ppo.")

@@ -9,7 +9,11 @@ Layout: `<directory>/<step>/state.pt` (plus `metrics.json` when given); the
 The TrainState parts are stored as plain lists and dicts (generators as their
 state bytes) and restored into the structure of a template TrainState from
 `trainer.init`, so the files hold only tensors and plain Python values and
-load with `weights_only=True`.
+load with `weights_only=True`. A field the checkpoint lacks or holds as None
+(`kl_beta` of a checkpoint from another algorithm or an older version) keeps
+the template's value. `save_tree` / `restore_tree` store any such tree alone
+in the same layout: the CLI keeps PAPI's carry beside the checkpoints, in
+`<checkpoints>_papi`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ def _plain(obj):
 def _restore_tree(template, saved):
     """`saved` (from `_plain`) in the structure of `template`: tensors moved
     to the template's devices, generators set in place to the saved state."""
+    if saved is None:
+        return template
     if isinstance(template, torch.Generator):
         template.set_state(saved)
         return template
@@ -69,14 +75,7 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def save_checkpoint(directory: str, step: int, trainer, state, metrics: Optional[dict] = None, max_to_keep: int = 5) -> None:
-    payload = {
-        "policy": trainer.policy.state_dict(),
-        "critic": trainer.critic.state_dict(),
-        "actor_opt": state.actor_opt.state_dict(),
-        "critic_opt": state.critic_opt.state_dict(),
-        "state": {f: _plain(getattr(state, f)) for f in state._fields if f not in OPTIMIZER_FIELDS},
-    }
+def _write(directory: str, step: int, payload: dict, metrics: Optional[dict], max_to_keep: int) -> None:
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir, exist_ok=True)
     path = os.path.join(step_dir, STATE_FILE)
@@ -89,16 +88,42 @@ def save_checkpoint(directory: str, step: int, trainer, state, metrics: Optional
         shutil.rmtree(os.path.join(directory, str(old)))
 
 
+def _read(directory: str, step: Optional[int]) -> dict:
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"No checkpoint found in {directory}")
+    return torch.load(os.path.join(directory, str(step), STATE_FILE), map_location="cpu", weights_only=True)
+
+
+def save_checkpoint(directory: str, step: int, trainer, state, metrics: Optional[dict] = None, max_to_keep: int = 5) -> None:
+    payload = {
+        "policy": trainer.policy.state_dict(),
+        "critic": trainer.critic.state_dict(),
+        "actor_opt": state.actor_opt.state_dict(),
+        "critic_opt": state.critic_opt.state_dict(),
+        "state": {f: _plain(getattr(state, f)) for f in state._fields if f not in OPTIMIZER_FIELDS},
+    }
+    _write(directory, step, payload, metrics, max_to_keep)
+
+
+def save_tree(directory: str, step: int, tree, max_to_keep: int = 5) -> None:
+    """A tree of tensors (a NamedTuple such as PAPI's state) at `step`."""
+    _write(directory, step, {"tree": _plain(tree)}, None, max_to_keep)
+
+
+def restore_tree(directory: str, template, step: Optional[int] = None):
+    """The tree saved by `save_tree`, in the structure and on the devices of
+    `template`."""
+    return _restore_tree(template, _read(directory, step)["tree"])
+
+
 def restore_checkpoint(directory: str, trainer, state, step: Optional[int] = None, fields: Optional[tuple] = None):
     """Load the parameters into `trainer`'s modules and return `state` (a
     template from `trainer.init`) with the stored values. `fields` restores
     only those TrainState fields and keeps the template's others: the eval
     CLI uses it with another env count than training, where the env-sized
     `env_state` and `obs` do not fit."""
-    step = latest_step(directory) if step is None else step
-    if step is None:
-        raise FileNotFoundError(f"No checkpoint found in {directory}")
-    payload = torch.load(os.path.join(directory, str(step), STATE_FILE), map_location="cpu", weights_only=True)
+    payload = _read(directory, step)
     for key in MODULE_KEYS:
         getattr(trainer, key).load_state_dict(payload[key])
     fields = state._fields if fields is None else fields

@@ -9,8 +9,11 @@ best / interval, resume.
 
 `--device` defaults to `cuda` and raises where there is no card; pass
 `--device cpu` to train on the CPU with the kernels' plain versions.
-Multi-device data parallelism, multi-host launches, PAPI and in-training video
-are not ported yet and raise.
+`algo=trpl|ppo|kl_ppo` picks the algorithm; with
+`algorithm.objective.papi_steps=true` each iteration ends in PAPI's
+post-update steps, and PAPI's carry is checkpointed beside the checkpoints
+(`<checkpoints>_papi`). Multi-device data parallelism, multi-host launches and
+in-training video are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..config import load_config, trainer_from_config
-    from .checkpoint import latest_step, restore_checkpoint
+    from .checkpoint import latest_step, restore_checkpoint, restore_tree
     from .logging import MetricsLogger
 
     device = resolve_device(args.device)
@@ -94,6 +97,7 @@ def main(argv=None):
     logger.log_hparams(cfg)
 
     state = trainer.init(torch.Generator(device=device).manual_seed(cfg["seed"]))
+    papi_state = trainer.papi_init(state) if trainer.cfg.papi_steps else None
     start_iter = 0
     load_dir = args.resume or cfg["logger"]["checkpoint"].get("load_dir")
     if load_dir:
@@ -101,6 +105,15 @@ def main(argv=None):
         state = restore_checkpoint(load_dir, trainer, state, step)
         start_iter = step + 1
         print(f"Resumed from {load_dir} @ iteration {step}")
+        if papi_state is not None:
+            # without PAPI's carry a resumed run would restart at lr_scale 1
+            # with an empty history
+            papi_dir = load_dir.rstrip("/") + "_papi"
+            if latest_step(papi_dir) is not None:
+                papi_state = restore_tree(papi_dir, papi_state)
+                print(f"Resumed PAPI state from {papi_dir}")
+            else:
+                print(f"WARNING: no PAPI state at {papi_dir}; LR anneal/history reset")
 
     ckpt_cfg = cfg["logger"]["checkpoint"]
     start = time.time()
@@ -108,22 +121,30 @@ def main(argv=None):
         trainer, state, logger, start_iter,
         total_iterations=max(1, cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]),
         save_interval=ckpt_cfg["save_interval"], save_best=ckpt_cfg["save_best"],
-        max_to_keep=ckpt_cfg.get("max_to_keep", 5), log_dir=log_dir,
+        max_to_keep=ckpt_cfg.get("max_to_keep", 5), log_dir=log_dir, papi_state=papi_state,
     )
     print(f"Training took {time.time() - start:.1f}s")
     logger.close()
     return log_dir
 
 
-def train_loop(trainer, state, logger, start_iter, total_iterations, save_interval, save_best, max_to_keep, log_dir):
-    from .checkpoint import save_checkpoint
+def train_loop(trainer, state, logger, start_iter, total_iterations, save_interval, save_best, max_to_keep, log_dir,
+               papi_state=None):
+    from .checkpoint import save_checkpoint, save_tree
 
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     frames_per_batch = trainer.cfg.steps_per_batch * trainer.env.cfg.num_envs
     best_reward = -float("inf")
+
+    def save(directory, step, **kw):
+        save_checkpoint(directory, step, trainer, state, max_to_keep=max_to_keep, **kw)
+
     for i in range(start_iter, total_iterations):
         t0 = time.time()
-        state, metrics = trainer.train_iteration(state)
+        if papi_state is not None:
+            state, papi_state, metrics = trainer.train_iteration_papi(state, papi_state)
+        else:
+            state, metrics = trainer.train_iteration(state)
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["train/iteration_time"] = time.time() - t0
         metrics["train/frames"] = (i + 1) * frames_per_batch
@@ -136,12 +157,15 @@ def train_loop(trainer, state, logger, start_iter, total_iterations, save_interv
             flush=True,
         )
         if save_interval > 0 and i % save_interval == 0:
-            save_checkpoint(ckpt_dir, i, trainer, state, metrics={"reward": reward}, max_to_keep=max_to_keep)
+            save(ckpt_dir, i, metrics={"reward": reward})
+            if papi_state is not None:
+                save_tree(ckpt_dir + "_papi", i, papi_state, max_to_keep=max_to_keep)
         if save_best and reward == reward and reward > best_reward:  # NaN-safe
             best_reward = reward
-            save_checkpoint(os.path.join(log_dir, "best"), i, trainer, state, metrics={"reward": reward},
-                            max_to_keep=max_to_keep)
-    save_checkpoint(ckpt_dir, total_iterations - 1, trainer, state, max_to_keep=max_to_keep)
+            save(os.path.join(log_dir, "best"), i, metrics={"reward": reward})
+    save(ckpt_dir, total_iterations - 1)
+    if papi_state is not None:
+        save_tree(ckpt_dir + "_papi", total_iterations - 1, papi_state, max_to_keep=max_to_keep)
     return state
 
 

@@ -1,12 +1,13 @@
-"""TRPL trainer (port of `geometry_rl_tpu/train/ppo.py`).
+"""On-policy trainer: TRPL, clipped PPO and KL-penalty PPO (port of
+`geometry_rl_tpu/train/ppo.py`).
 
 One `train_iteration` is the reference's: collect T control steps (simulator
 and kernel, observation pipeline, graph builders, policy and critic forward)
--> GAE -> ppo_epochs x minibatches of the TRPL loss with the KL projection,
-backward and Adam. Python loops take the place of `lax.scan`; the policy and
-critic parameters live in their `nn.Module`s and the Adam states in the
-TrainState. Clipped PPO, KL-penalty PPO and PAPI are not ported yet (ROADMAP.md
-Queue 1 item 10).
+-> GAE -> ppo_epochs x minibatches of the algorithm's loss (TRPL with its
+trust-region projection, clipped PPO, or KL-penalty PPO with its adaptive
+beta), backward and Adam. `train_iteration_papi` adds PAPI's post-update
+steps. Python loops take the place of `lax.scan`; the policy and critic
+parameters live in their `nn.Module`s and the Adam states in the TrainState.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from ..models.calibration import calibrate
 from ..models.common import init_params
 from ..rl import gaussian as G
 from ..rl.gae import gae
-from ..rl.losses import LossInputs, trpl_loss
+from ..rl.losses import LossInputs, adapt_kl_beta, kl_pen_ppo_loss, ppo_clip_loss, trpl_loss
 from ..rl.obs_pipeline import ObsNormState, obs_norm_apply, obs_norm_init, obs_norm_step
 from ..rl.projections import BaseProjection
+from ..rl.projections.papi import PAPIState, find_papi_paths, papi_init_state, papi_steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,7 @@ class TrainState(NamedTuple):
     generator: torch.Generator  # action sampling and minibatch permutations
     num_updates: int  # network updates so far (lr anneal, projection step)
     initial_entropy: torch.Tensor  # mean policy entropy at init
+    kl_beta: Optional[torch.Tensor] = None  # KL-penalty coefficient, 0-d f32 (algo "kl_ppo" only)
 
 
 class Batch(NamedTuple):
@@ -151,6 +154,7 @@ class Trainer:
             critic_opt=torch.optim.Adam(self.critic.parameters(), lr=self.cfg.lr, eps=1e-5),
             norm=norm, env_state=env_state, obs=obs, generator=g_rest, num_updates=0,
             initial_entropy=initial_entropy,
+            kl_beta=torch.full((), self.cfg.kl_beta, device=self.device) if self.cfg.algo == "kl_ppo" else None,
         )
 
     # --------------------------------------------------------------- forward
@@ -203,11 +207,11 @@ class Trainer:
 
     # ---------------------------------------------------------------- update
 
-    def _minibatch_loss(self, mb: Dict, num_updates: int, initial_entropy=None):
-        """Total loss (actor + critic) of one minibatch and its metrics."""
+    def _minibatch_loss(self, mb: Dict, num_updates: int, initial_entropy=None, kl_beta=None):
+        """Total loss (actor + critic) of one minibatch and (its metrics, the
+        KL-penalty beta for the next minibatch: adapted for "kl_ppo", else
+        `kl_beta` as given)."""
         cfg = self.cfg
-        if cfg.algo != "trpl":
-            raise NotImplementedError(f"algo {cfg.algo!r} is not ported yet (ROADMAP.md Queue 1 item 10)")
         # training-noise augmentation: a fresh draw per network update, on
         # training forwards only
         nk_a = nk_c = None
@@ -220,13 +224,29 @@ class Trainer:
             action=mb["action"], sample_log_prob=mb["log_prob"], advantage=mb["advantage"],
             value_target=mb["value_target"], old_value=mb["value"],
         )
-        actor_loss, critic_loss, metrics = trpl_loss(
-            dist, G.DiagGaussian(mb["mean"], mb["std"]), value, inputs, self.projection,
-            step=num_updates, initial_entropy=initial_entropy, entropy_coef=cfg.entropy_coef,
-            critic_coef=cfg.critic_coef, clip_value=cfg.clip_value, loss_critic_type=cfg.loss_critic_type,
-            normalize_advantage=cfg.normalize_advantage, entropy_bonus=cfg.entropy_bonus,
-        )
-        return actor_loss + critic_loss, metrics
+        common = dict(entropy_coef=cfg.entropy_coef, critic_coef=cfg.critic_coef, loss_critic_type=cfg.loss_critic_type,
+                      normalize_advantage=cfg.normalize_advantage, entropy_bonus=cfg.entropy_bonus)
+        old_dist = G.DiagGaussian(mb["mean"], mb["std"])
+        if cfg.algo == "trpl":
+            actor_loss, critic_loss, metrics = trpl_loss(
+                dist, old_dist, value, inputs, self.projection, step=num_updates, initial_entropy=initial_entropy,
+                clip_value=cfg.clip_value, **common,
+            )
+        elif cfg.algo == "kl_ppo":
+            # the critic loss unclipped; with kl_beta_interval "iteration" beta
+            # is a constant of the update phase, adapted once in `_update`
+            actor_loss, critic_loss, kl_beta, metrics = kl_pen_ppo_loss(
+                dist, old_dist, value, inputs, kl_beta, dtarg=cfg.dtarg, increment=cfg.kl_increment,
+                decrement=cfg.kl_decrement, adapt=cfg.kl_beta_interval != "iteration", **common,
+            )
+        else:
+            clip_eps = cfg.clip_epsilon
+            if cfg.anneal_clip_epsilon:
+                clip_eps = cfg.clip_epsilon * (1.0 - num_updates / self.total_network_updates)
+            actor_loss, critic_loss, metrics = ppo_clip_loss(
+                dist, value, inputs, clip_epsilon=clip_eps, clip_value=cfg.clip_value, **common,
+            )
+        return actor_loss + critic_loss, (metrics, kl_beta)
 
     def _permutation(self, generator: torch.Generator, n: int) -> torch.Tensor:
         """One epoch's minibatch indices [n_mb, mb_size]: a permutation of the
@@ -235,9 +255,12 @@ class Trainer:
         perm = torch.randperm(n, generator=generator, device=generator.device)
         return perm[: n_mb * mb_size].reshape(n_mb, mb_size).to(self.device)
 
-    def _optimizer_step(self, opt: torch.optim.Adam, num_updates: int) -> None:
+    def _optimizer_step(self, opt: torch.optim.Adam, num_updates: int, lr_scale: Optional[float] = None) -> None:
         """optax's chain: clip_by_global_norm (g * max / norm where norm >
-        max) before Adam, Adam's lr annealed linearly over the run's updates."""
+        max) before Adam, Adam's lr annealed linearly over the run's updates.
+        `lr_scale` multiplies this step's update: Adam's update is linear in
+        its lr, so the step runs at lr * lr_scale and the lr is put back
+        after it."""
         cfg = self.cfg
         params = [p for group in opt.param_groups for p in group["params"] if p.grad is not None]
         if cfg.clip_grad_norm:
@@ -248,21 +271,31 @@ class Trainer:
             frac = 1.0 - min(num_updates, self.total_network_updates) / self.total_network_updates
             for group in opt.param_groups:
                 group["lr"] = cfg.lr * frac
+        if lr_scale is None:
+            opt.step()
+            return
+        lrs = [group["lr"] for group in opt.param_groups]
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr * lr_scale
         opt.step()
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr
 
-    def _minibatch_step(self, state: TrainState, mb: Dict, num_updates: int) -> Dict[str, torch.Tensor]:
-        """Loss, backward, and one Adam step of actor and critic."""
+    def _minibatch_step(self, state: TrainState, mb: Dict, num_updates: int, kl_beta: Optional[torch.Tensor] = None,
+                        lr_scale: Optional[float] = None) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+        """Loss, backward, and one Adam step of actor and critic. Returns the
+        metrics and the KL-penalty beta for the next minibatch."""
         state.actor_opt.zero_grad(set_to_none=True)
         state.critic_opt.zero_grad(set_to_none=True)
-        loss, metrics = self._minibatch_loss(mb, num_updates, state.initial_entropy)
+        loss, (metrics, kl_beta) = self._minibatch_loss(mb, num_updates, state.initial_entropy, kl_beta)
         loss.backward()
         # pre-clip gradient magnitude; `_max` aggregates as a max below
         gn = global_norm([p.grad for p in self.policy.parameters() if p.grad is not None])
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm_actor"] = metrics["grad_norm_actor_max"] = gn
-        self._optimizer_step(state.actor_opt, num_updates)
-        self._optimizer_step(state.critic_opt, num_updates)
-        return metrics
+        self._optimizer_step(state.actor_opt, num_updates, lr_scale)
+        self._optimizer_step(state.critic_opt, num_updates, lr_scale)
+        return metrics, kl_beta
 
     def _update_data(self, state: TrainState, batch: Batch) -> Dict:
         """GAE (bootstrapped with the current critic on the post-rollout
@@ -291,24 +324,33 @@ class Trainer:
             "env_ids": torch.arange(B, device=self.device).repeat(T),
         }
 
-    def _update(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """ppo_epochs x minibatches of loss, backward and Adam."""
+    def _update(self, state: TrainState, batch: Batch, lr_scale: Optional[float] = None
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """ppo_epochs x minibatches of loss, backward and Adam; `lr_scale`
+        (PAPI's LR annealing) multiplies every Adam update."""
+        cfg = self.cfg
         data = self._update_data(state, batch)
         n = data["action"].shape[0]
-        num_updates = state.num_updates
+        num_updates, kl_beta = state.num_updates, state.kl_beta
         stacked: Dict[str, List[torch.Tensor]] = {}
-        for _ in range(self.cfg.ppo_epochs):
+        for _ in range(cfg.ppo_epochs):
             for idx in self._permutation(state.generator, n):
                 mb = {k: ({g: x[idx] for g, x in v.items()} if k == "tobs" else v[idx]) for k, v in data.items()}
-                for k, v in self._minibatch_step(state, mb, num_updates).items():
+                metrics, kl_beta = self._minibatch_step(state, mb, num_updates, kl_beta, lr_scale)
+                for k, v in metrics.items():
                     stacked.setdefault(k, []).append(v)
                 num_updates += 1
+        if cfg.algo == "kl_ppo" and cfg.kl_beta_interval == "iteration":
+            # one adapt step per iteration, from the mean of the LAST epoch's
+            # minibatch KLs (each taken before its minibatch's update)
+            kl_final = torch.stack(stacked["kl"][-self.num_minibatches:]).mean()
+            kl_beta = adapt_kl_beta(kl_beta, kl_final, cfg.dtarg, cfg.kl_increment, cfg.kl_decrement)
         # means over the epoch x minibatch stack, except the `_max` keys,
         # which aggregate as true maxes
         metrics = {k: (torch.stack(v).max() if k.endswith("_max") else torch.stack(v).mean()) for k, v in stacked.items()}
         vt, v = data["value_target"], data["value"]
         metrics["train/explained_variance"] = 1.0 - (vt - v).var(correction=0) / torch.clamp(vt.var(correction=0), min=1e-8)
-        return state._replace(num_updates=num_updates), metrics
+        return state._replace(num_updates=num_updates, kl_beta=kl_beta), metrics
 
     # -------------------------------------------------------------- full step
 
@@ -326,6 +368,68 @@ class Trainer:
         metrics["train/collect_time"] = torch.tensor(t1 - t0)
         metrics["train/update_time"] = torch.tensor(time.perf_counter() - t1)
         return state, metrics
+
+    # ------------------------------------------------------------------ PAPI
+
+    def papi_init(self, state: TrainState) -> PAPIState:
+        """The PAPI carry for `train_iteration_papi`. Raises `find_papi_paths`'s
+        ValueError for a policy without a Dense `mean` head and a
+        non-contextual std (HEPi and EMPN have no `mean` head)."""
+        params = dict(self.policy.named_parameters())
+        find_papi_paths(params)
+        return papi_init_state(params, history=self.cfg.papi_history)
+
+    def _papi_steps(self, state: TrainState, batch: Batch, papi_state: PAPIState) -> Tuple[PAPIState, Dict[str, torch.Tensor]]:
+        """PAPI's post-update steps on the collected batch: the policy's
+        parameters are replaced by the projected ones and the LR scale
+        decays after a deep backtrack or when nothing is feasible. The
+        full-batch forwards (T*B samples, no grad) run 1 + backtracks + 1 +
+        papi_iters times."""
+        cfg = self.cfg
+        T, B = cfg.steps_per_batch, self.env.cfg.num_envs
+
+        def flat(x):
+            return x.reshape((T * B,) + x.shape[2:])
+
+        with torch.no_grad():
+            graph, feats = self.policy_builder.build({k: flat(v) for k, v in batch.tobs.items()},
+                                                     torch.arange(B, device=self.device).repeat(T))
+        params = {k: v.detach() for k, v in self.policy.named_parameters()}
+        new_params, papi_state, anneal, n_backtracks = papi_steps(
+            lambda p: torch.func.functional_call(self.policy, p, (graph, feats)),
+            params, papi_state, G.DiagGaussian(flat(batch.mean), flat(batch.std)),
+            mean_bound=self.projection.mean_bound, cov_bound=self.projection.cov_bound,
+            initial_entropy=state.initial_entropy, init_std=self.policy.init_std, minimal_std=self.policy.minimal_std,
+            n_iters=cfg.papi_iters,
+        )
+        with torch.no_grad():
+            for k, p in self.policy.named_parameters():
+                p.copy_(new_params[k])
+        papi_state = papi_state._replace(lr_scale=papi_state.lr_scale * (cfg.papi_lr_decay if anneal else 1.0))
+        return papi_state, {"papi/n_backtracks": torch.tensor(float(n_backtracks)), "papi/lr_scale": papi_state.lr_scale}
+
+    def train_iteration_papi(self, state: TrainState, papi_state: PAPIState
+                             ) -> Tuple[TrainState, PAPIState, Dict[str, torch.Tensor]]:
+        """Collect, update with Adam's updates scaled by the PAPI LR scale,
+        then `_papi_steps`. Reports each part's seconds (`train/collect_time`,
+        `train/update_time`, `train/papi_time`), each ending in a device
+        synchronize."""
+        self._sync()
+        t0 = time.perf_counter()
+        state, batch, collect_stats = self._collect(state)
+        self._sync()
+        t1 = time.perf_counter()
+        state, metrics = self._update(state, batch, lr_scale=float(papi_state.lr_scale))
+        self._sync()
+        t2 = time.perf_counter()
+        papi_state, papi_metrics = self._papi_steps(state, batch, papi_state)
+        self._sync()
+        metrics.update(collect_stats)
+        metrics.update(papi_metrics)
+        metrics["train/collect_time"] = torch.tensor(t1 - t0)
+        metrics["train/update_time"] = torch.tensor(t2 - t1)
+        metrics["train/papi_time"] = torch.tensor(time.perf_counter() - t2)
+        return state, papi_state, metrics
 
     # ------------------------------------------------------------------ eval
 

@@ -14,6 +14,11 @@ then prints:
     Adam, and what is left: zero_grad and the logged gradient norm), the
     device and host time inside the KL projection's bisection
     (`kl_bisection` range), and the kernels with the most device time.
+    Clipped PPO and KL-penalty PPO (`algo=ppo|kl_ppo`) have no projection:
+    their projection and bisection parts count 0;
+  - with `algorithm.objective.papi_steps=true`, PAPI's post-update steps as
+    a part of their own: ms, device kernels and peak device memory of one
+    call on a collected batch (`papi_window`).
 `update_window(trainer, state, n)` is the window alone, for callers that
 have a trainer and a collected state already.
 It needs a card and raises without one.
@@ -67,8 +72,9 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
     mbs = [{k: ({g: x[i] for g, x in v.items()} if k == "tobs" else v[i]) for k, v in data.items()} for i in idx]
 
     def window():
+        kl_beta = state.kl_beta
         for mb in mbs:
-            trainer._minibatch_step(state, mb, state.num_updates)
+            _, kl_beta = trainer._minibatch_step(state, mb, state.num_updates, kl_beta)
 
     window()
     torch.cuda.synchronize()
@@ -169,6 +175,34 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
             **{f"kernels_{label}": parts[label][0] / n for label in PARTS}}
 
 
+def papi_window(trainer, state, tag: str = "") -> Dict[str, float]:
+    """Time and profile one call of PAPI's post-update steps on the batch
+    collected from `state` (after a warm-up call); prints ms, device kernels,
+    peak device memory and the backtracks taken, and returns them."""
+    papi_state = trainer.papi_init(state)
+    state, batch, _ = trainer._collect(state)
+    trainer._papi_steps(state, batch, papi_state)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = trainer._papi_steps(state, batch, papi_state)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer._papi_steps(state, batch, papi_state)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    n_samples = batch.action.shape[0] * batch.action.shape[1]
+    print(f"[profile] {tag}papi steps: {ms:.1f} ms (synchronised) over {n_samples} samples, {len(kernels)} device "
+          f"kernels, {metrics['papi/n_backtracks'].item():.0f} backtracks, {trainer.cfg.papi_iters} iterations; peak "
+          f"device memory {peak_gib:.3f} GiB")
+    return {"papi_ms": ms, "papi_kernels": float(len(kernels)), "papi_peak_gib": peak_gib,
+            "papi_n_backtracks": metrics["papi/n_backtracks"].item()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="cloth_hanging_multi_hepi_trpl")
@@ -193,6 +227,8 @@ def main(argv=None):
           f"update {float(metrics['train/update_time']):.3f} s "
           f"({trainer.cfg.ppo_epochs} epochs x {trainer.num_minibatches} minibatches of {trainer.mini_batch_size})")
     update_window(trainer, state, args.minibatches)
+    if trainer.cfg.papi_steps:
+        papi_window(trainer, state)
 
 
 if __name__ == "__main__":

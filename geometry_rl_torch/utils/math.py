@@ -13,7 +13,8 @@ import torch
 
 def quat_identity(shape: tuple = (), device=None) -> torch.Tensor:
     """Identity quaternion broadcast to `shape + (4,)`."""
-    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=device)
+    q = torch.zeros(4, dtype=torch.float32, device=device)
+    q[0].fill_(1.0)  # a fill on the device: no copy from the host, which would synchronise
     return q.expand(tuple(shape) + (4,))
 
 

@@ -1,6 +1,7 @@
 """The port's config loader against the JAX package's, on every shared YAML,
 and `trainer_from_config`'s reading of it."""
 
+import dataclasses
 import inspect
 
 import pytest
@@ -104,3 +105,33 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     }[entry.__qualname__.split(".")[0] if entry.__name__ == "__init__" else entry.__name__]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+@pytest.mark.parametrize("proj_type", ["kl", "frob", "w2", "w2_non_com", "papi", "ppo"])
+@pytest.mark.parametrize("interval", ["minibatch", "iteration"])
+@pytest.mark.parametrize("algo", ["trpl", "ppo", "kl_ppo"])
+def test_trainer_from_config_builds_every_algorithm(algo, interval, proj_type):
+    """Every algorithm x KL-penalty interval x projection the JAX loader
+    takes: the same TrainConfig and the same projection layer (the
+    projection is the identity for ppo and kl_ppo), and the KL-penalty
+    coefficient only where the algorithm has one."""
+    overrides = {**TINY, "algo": algo, "algorithm": {
+        **TINY["algorithm"], "objective": {"kl_beta_interval": interval}, "projection": {"proj_type": proj_type}}}
+    tr = config.trainer_from_config(config.load_config("rigid_insertion_multi_hepi_trpl", overrides), device="cpu")
+    ref = jax_config.trainer_from_config(jax_config.load_config("rigid_insertion_multi_hepi_trpl", overrides))
+    assert dataclasses.asdict(tr.cfg) == dataclasses.asdict(ref.cfg)
+    assert type(tr.projection).__name__ == type(ref.projection).__name__
+    assert type(tr.projection).__name__ == ("BaseProjection" if algo != "trpl" else
+                                            {"kl": "KLProjection", "frob": "FrobeniusProjection", "papi": "PAPIProjection",
+                                             "ppo": "BaseProjection"}.get(proj_type, "WassersteinProjection"))
+    assert tr.projection.entropy_first == ref.projection.entropy_first
+    state = tr.init(torch.Generator().manual_seed(0))
+    assert (state.kl_beta is not None) == (algo == "kl_ppo")
+
+
+def test_trainer_from_config_refuses_an_unknown_beta_interval():
+    overrides = {**TINY, "algo": "kl_ppo", "algorithm": {**TINY["algorithm"], "objective": {"kl_beta_interval": "epoch"}}}
+    for package in (config, jax_config):
+        with pytest.raises(ValueError, match="kl_beta_interval"):
+            package.trainer_from_config(package.load_config("rigid_insertion_multi_hepi_trpl", overrides),
+                                        **({"device": "cpu"} if package is config else {}))

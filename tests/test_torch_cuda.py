@@ -8,7 +8,7 @@ also runs on a machine with only PyTorch:
 import pytest
 import torch
 
-from geometry_rl_torch.config import load_config, trainer_from_config
+from geometry_rl_torch.config import _merge, load_config, trainer_from_config
 from geometry_rl_torch.envs import make_env
 from geometry_rl_torch.sim.cloth_solve import (
     LAUNCHES,
@@ -483,3 +483,61 @@ def test_new_train_iterations_on_the_card_are_finite(cuda_device, config):
     state, metrics = trainer.train_iteration(state)
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
+
+
+@pytest.mark.cuda
+def test_cloth_collect_does_not_synchronise(cuda_device):
+    """The whole cloth_hanging collect (obs normaliser, graph builders, HEPi,
+    critic, action sampling, the env step with K2's port and the fresh layout
+    drawn every step) through auto-resets, after a warm-up collect, under
+    CUDA's sync debug mode set to error."""
+    cfg = load_config("cloth_hanging_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 16, "kwargs": {"warmup_steps": 0, "episode_length": 3}},
+        "collector": {"frames_per_batch": 128}, "algorithm": {"latent_dim": 16, "num_ori": 4},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, _, _ = trainer._collect(state)
+    torch.cuda.synchronize()
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, batch, _ = trainer._collect(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES == {"cloth_solve": 2 * 8, "cloth_solve_env": 0}
+    assert batch.done.any() and torch.isfinite(batch.reward).all()
+
+
+PAPI = {"algorithm": {"projection": {"proj_type": "papi"}, "policy": {"contextual_std": False},
+                      "objective": {"papi_steps": True, "mini_batch_size": 16}}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,overrides", [
+    ("rigid_insertion_multi_hepi_trpl", {"algo": "ppo"}),
+    ("rigid_insertion_multi_hepi_trpl", {"algo": "kl_ppo", "algorithm": {"objective": {"kl_beta_interval": "iteration"}}}),
+    ("cloth_hanging_multi_hepi_trpl", {"algorithm": {"projection": {"proj_type": "frob"}}}),
+    ("cloth_hanging_multi_transformer_trpl", PAPI),
+], ids=["ppo", "kl_ppo", "frob", "papi"])
+def test_new_algorithms_train_on_the_card(cuda_device, config, overrides):
+    """A small bf16 iteration of each new algorithm on the card: finite
+    metrics, params that moved; kl_ppo's beta and PAPI's carry on the card
+    and the CPU where they belong."""
+    base = {"env": {"num_envs": 8, "kwargs": {"warmup_steps": 1, "episode_length": 4}}, "collector": {"frames_per_batch": 32},
+            "algorithm": {"objective": {"mini_batch_size": 16}}}
+    cfg = load_config(config, overrides=_merge(base, overrides))
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+    if trainer.cfg.papi_steps:
+        papi = trainer.papi_init(state)
+        state, papi, metrics = trainer.train_iteration_papi(state, papi)
+        assert papi.history["mean.weight"].device.type == "cuda" and papi.lr_scale.device.type == "cpu"
+        assert 0.0 < metrics["papi/lr_scale"].item() <= 1.0
+    else:
+        state, metrics = trainer.train_iteration(state)
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
+    if trainer.cfg.algo == "kl_ppo":
+        assert state.kl_beta.device.type == "cuda" and state.kl_beta.item() in (0.5, 1.0, 2.0)

@@ -1,5 +1,6 @@
-"""GAE, the KL projection, the projection layers and the TRPL loss of the
-PyTorch port against the JAX package, on the same numpy inputs (f32).
+"""GAE, the KL projection, the projection layers (KL, Frobenius, W2, PAPI)
+and the TRPL loss of the PyTorch port against the JAX package, on the same
+numpy inputs (f32).
 
 Tolerances:
 - GAE: 1e-6 absolute (a sum of ~T terms of order 1, f32).
@@ -7,7 +8,10 @@ Tolerances:
   the same order; the bracket converges to the same f32 point, so they differ
   by the ulps of the interpolation and of the closed-form backward.
 - Layers, losses, metrics and their gradients: 1e-5 relative, 1e-6 absolute
-  (sums over a batch of 16 in another order).
+  (sums over a batch of 16 in another order). The Frobenius, W2 and PAPI
+  layers' gradients: within 1e-5 of each tensor's largest entry (the W2
+  cov part with `scale_prec` is 1 + c - 2 sqrt(c) per entry, a cancellation
+  that leaves the small entries a few ulps of the large ones).
 """
 
 import jax
@@ -196,14 +200,69 @@ def test_closed_form_projections_match_reference():
 
 
 def test_projection_factory():
+    """Every name the reference's factory takes gives the same layer type,
+    and PAPI's layer projects its entropy first."""
     assert type(get_projection_layer("ppo")) is BaseProjection
     p = gaussian.DiagGaussian(torch.zeros(2, 3), torch.ones(2, 3))
     assert all(torch.equal(a, b) for a, b in zip(get_projection_layer("identity")(p, p), p))
-    for name in ("frob", "w2", "papi"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_projection_layer(name)
+    for name in ("kl", "frob", "w2", "wasserstein", "w2_non_com", "papi", "ppo", "", "identity", "entropy", "none"):
+        assert type(get_projection_layer(name)).__name__ == type(jax_get_projection_layer(name)).__name__, name
+    assert get_projection_layer("papi").entropy_first and not get_projection_layer("papi", entropy_first=False).entropy_first
     with pytest.raises(ValueError):
         get_projection_layer("nope")
+
+
+@pytest.mark.parametrize("scale_prec", [True, False])
+def test_frobenius_and_wasserstein_parts_match_reference(scale_prec):
+    mean, std, old_mean, old_std = dist_arrays()
+    jp, jq = jax_gaussian.DiagGaussian(mean, std), jax_gaussian.DiagGaussian(old_mean, old_std)
+    tp, tq = gaussian.DiagGaussian(t(mean), t(std)), gaussian.DiagGaussian(t(old_mean), t(old_std))
+    for name in ("frobenius_parts", "wasserstein_parts"):
+        ref = getattr(jax_gaussian, name)(jp, jq, scale_prec=scale_prec)
+        got = getattr(gaussian, name)(tp, tq, scale_prec=scale_prec)
+        for g, r, part in zip(got, ref, ("mean", "cov")):
+            close(g, r, msg=f"{name} {part}")
+
+
+@pytest.mark.parametrize("scale_prec", [True, False])
+@pytest.mark.parametrize("proj_type", ["frob", "w2", "papi"])
+def test_frobenius_w2_and_papi_layers_match_reference(proj_type, scale_prec):
+    """Projected distribution, `trust_region_loss` and the gradients of both
+    (against `jax.vjp`), and the constraint metrics; the covariance bound is
+    active on some rows and not on others."""
+    mean, std, old_mean, old_std = dist_arrays(cov_scale=1.2)
+    std[4:8] = old_std[4:8] * 1.001  # inside the covariance bound
+    kw = dict(mean_bound=0.05, cov_bound=0.05, trust_region_coeff=4.0, action_dim=K, scale_prec=scale_prec)
+    jl, tl = jax_get_projection_layer(proj_type, **kw), get_projection_layer(proj_type, **kw)
+    jq = jax_gaussian.DiagGaussian(old_mean, old_std)
+
+    def jax_fn(m, s):
+        p = jax_gaussian.DiagGaussian(m, s)
+        proj = jl(p, jq, 5)
+        return proj, jl.trust_region_loss(p, proj)
+
+    (jproj, jloss), vjp = jax.vjp(jax_fn, jnp.asarray(mean), jnp.asarray(std))
+    jgrads = vjp((jax_gaussian.DiagGaussian(jnp.ones_like(jproj.mean), jnp.ones_like(jproj.std)), jnp.ones(())))
+
+    m, s = t(mean, requires_grad=True), t(std, requires_grad=True)
+    tp = gaussian.DiagGaussian(m, s)
+    tproj = tl(tp, gaussian.DiagGaussian(t(old_mean), t(old_std)), 5)
+    tloss = tl.trust_region_loss(tp, tproj)
+    (tproj.mean.sum() + tproj.std.sum() + tloss).backward()
+    close(tproj.mean, jproj.mean, msg="mean")
+    close(tproj.std, jproj.std, msg="std")
+    close(tloss, jloss, msg="trust_region_loss")
+    for got, ref, name in ((m.grad, jgrads[0], "d/dmean"), (s.grad, jgrads[1], "d/dstd")):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= RTOL * np.abs(ref).max(), name
+    if proj_type != "papi":  # some rows projected, some not
+        cov_part = np.asarray(jl.trust_region_value(jax_gaussian.DiagGaussian(mean, std), jq)[1])
+        assert (cov_part > 0.05).any() and (cov_part <= 0.05).any()
+    jm = jl.compute_metrics(jax_gaussian.DiagGaussian(mean, std), jproj)
+    tm = tl.compute_metrics(gaussian.DiagGaussian(t(mean), t(std)), tproj)
+    assert sorted(jm) == sorted(tm)
+    for k in jm:
+        close(tm[k], jm[k], msg=k)
 
 
 @pytest.mark.parametrize("loss_critic_type,normalize", [("l2", True), ("smooth_l1", False)])
