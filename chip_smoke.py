@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, and clipped PPO, KL-penalty PPO and PAPI on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering and data parallelism on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-31 (or those listed) only, no result lines
+    python3 chip_smoke.py --keep-going   # report every failed gate, then exit non-zero
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
@@ -109,6 +111,32 @@ Phases, each printing a line; any failure raises and exits non-zero:
      the full-covariance projections and their gradients at k = 6, 12.
  27. `train/profile.py`'s update window (10 minibatch steps) for kl_ppo and
      ppo on RIGID_CONFIG: ms and device kernels per minibatch step, by part.
+ 28. behaviour cloning at full width through `train.bc_cli`
+     (cloth_hanging_multi_hepi_trpl: 100 envs x 100 recorded steps from a
+     fresh init, 5 epochs of 39 minibatches of 256, an eval of 100 steps at
+     epoch 0 and the final success eval), then `train.play` on `cloned/`: K2's
+     port launches exactly 2 x (10 + 100) times in the recording and in each
+     eval; the dataset's keys and shapes; finite `bc_loss`, lower in the fifth
+     epoch than in the first; one BC epoch card vs CPU (4 envs, f32, the same
+     data and permutation): first gradients within GRAD_TOL of their norm,
+     each minibatch's loss and the policy's mean after it within BC_TOL.
+ 29. `train.runner.OnPolicyRunner` with its defaults (rigid_pushing, HEPi,
+     ppo, 256 envs x 24 steps): `learn(1)`, `save` / `load` bit-exact, the
+     inference policy card vs CPU within SLICE_TOL.
+ 30. `train.render.collect_frames` of cloth env 0 for 100 deterministic steps
+     at full width: K2's port exactly 2 x (10 + 100) launches; each frame
+     within SLICE_TOL of the CPU's step from the card's state; a GIF where
+     matplotlib is installed (else its ImportError is printed).
+ 31. data parallelism on one card: rank 1's env against rows 50..100 of the
+     one-process env; 2 gloo processes x 50 envs on cuda:0 beside two
+     one-process runs x 100 of cloth_hanging_multi_hepi_trpl (f32, one
+     iteration, 1 update epoch, deterministic algorithms): the collect's
+     metrics and env state within tests/test_parallel.py's tolerances, the
+     first minibatch step within DP_FIRST_GRAD_TOL / DP_FIRST_METRIC_SCALE,
+     the two one-process runs equal; after the whole update, metrics and
+     params printed; K2's port 2 x (10 + 100) launches in every process, the
+     2-rank checkpoint restored in one process; then a one-rank NCCL launch
+     through the CLI.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -172,7 +200,14 @@ ALGO_KEYS = {
 PAPI_KEYS = ("papi/n_backtracks", "papi/lr_scale", "train/papi_time")
 
 
+FAILURES = []  # with --keep-going, the failed gates, reported at the end
+
+
 def fail(msg: str) -> None:
+    if "--keep-going" in sys.argv:
+        print(f"[FAILED] {msg}", flush=True)
+        FAILURES.append(msg)
+        return
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
@@ -755,6 +790,544 @@ def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
         fail(f"the cloth env's False and tiled modes disagree: {worst}")
 
 
+CLOTH_CONFIG = "cloth_hanging_multi_hepi_trpl"
+# one BC epoch card vs CPU: each minibatch's loss (relative) and the policy's
+# mean after the epoch (relative to max(1, scale)); not the params entry by
+# entry: Adam with optax's eps of 1e-8 turns a gradient entry at rounding
+# level (~1e-8 where the global norm is ~1e2) into a step of up to lr = 3e-4
+# of either sign
+BC_TOL = 1e-4
+# data parallelism against one process: tests/test_parallel.py's tolerances
+DP_METRIC_ATOL, DP_METRIC_RTOL = 1e-4, 1e-3
+DP_PARAM_ATOL, DP_PARAM_RTOL = 5e-5, 1e-4
+DP_STATE_TOL = 1e-5
+# the first minibatch step of 2 ranks against one process at full width: the
+# ranks' forwards run at half the batch, where the card's f32 GEMMs round in
+# another order (~1e-6 of the output after the layers), and the critic's loss
+# subtracts targets from values of ~190 that differ by ~28: with the card
+# deterministic (run-to-run gap 0) the gradients measured 1.96e-4 of their
+# global norm and the metrics 1.96 of test_parallel's tolerance on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md); tests/test_torch_parallel.py holds the
+# tight tolerances at a small size on the CPU
+DP_FIRST_GRAD_TOL = 1e-3
+DP_FIRST_METRIC_SCALE = 10.0
+TIMING_KEYS = ("wall_time", "train/iteration_time", "train/collect_time", "train/update_time")
+
+
+def counted(obj, name: str, into: dict, key: str):
+    """Wrap `obj.name` so that the cloth-kernel launches made inside its
+    calls add up under `into[key]` and their seconds (each call ending in a
+    device synchronize) under `into[key + "_s"]`."""
+    import torch
+
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+
+    inner = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        before = LAUNCHES["cloth_solve"] + LAUNCHES["cloth_solve_env"]
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            into[key + "_s"] = into.get(key + "_s", 0.0) + time.perf_counter() - t0
+            into[key] = into.get(key, 0) + LAUNCHES["cloth_solve"] + LAUNCHES["cloth_solve_env"] - before
+
+    setattr(obj, name, wrapper)
+    return inner
+
+
+def bc_phase(card: str) -> dict:
+    """Phase 28: `train.bc_cli` at full width on CLOTH_CONFIG from a fresh
+    init (100 steps recorded: 10,000 transitions; 5 epochs of 39 minibatches
+    of 256; an eval of 100 steps at epoch 0; the final success eval), then
+    `train.play` on `cloned/`. Gates: K2's port launches exactly 2 x (10 +
+    100) times in the recording and in each eval, and K1's never; the dataset
+    has the JAX package's keys and shapes; every `bc_loss` is finite and the
+    fifth epoch's is below the first's. Then one BC epoch (4 minibatches of
+    20 from 80 recorded transitions, 4 envs, f32) on the card and on the CPU
+    from the same params, data and permutation: the first minibatch's
+    gradients within GRAD_TOL of their global norm, each minibatch's loss and
+    the policy's mean after the epoch within BC_TOL (the params' largest gap
+    is printed). Returns the launch counts of the recording and the evals."""
+    import numpy as np
+    import torch
+
+    from geometry_rl_torch.config import _merge, load_config, trainer_from_config
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.train import bc, bc_cli, play
+    from geometry_rl_torch.train.ppo import Trainer
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_bc_")
+    counts = {}
+    originals = [(bc, "generate_data", counted(bc, "generate_data", counts, "record")),
+                 (bc, "behavior_cloning", counted(bc, "behavior_cloning", counts, "clone")),
+                 (Trainer, "eval_rollout", counted(Trainer, "eval_rollout", counts, "eval_rollout")),
+                 (Trainer, "eval_success", counted(Trainer, "eval_success", counts, "eval_success"))]
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    try:
+        t0 = time.perf_counter()
+        history = bc_cli.main(["--config", CLOTH_CONFIG, "--device", "cuda", "--record-steps", "100", "--epochs", "5",
+                               "--batch-size", "256", "--eval-every", "5", "--eval-steps", "100", "--success-threshold",
+                               "0.1", "--out-dir", out])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+    finally:
+        for obj, name, inner in originals:
+            setattr(obj, name, inner)
+    launches = dict(LAUNCHES)
+    each = 2 * (10 + 100)
+    epoch_s = (counts["clone_s"] - counts["eval_rollout_s"]) / 5
+    print(f"[bc] {CLOTH_CONFIG}: bc_cli took {t_cli:.2f} s: recording 100 steps {counts['record_s']:.3f} s, 5 epochs of 39 "
+          f"minibatches of 256 {epoch_s:.3f} s each, eval_rollout of 100 steps {counts['eval_rollout_s']:.3f} s, eval_success "
+          f"{counts['eval_success_s']:.3f} s; on {card}")
+    print(f"[bc] cloth kernel launches {launches}: recording {counts.get('record')}, "
+          f"eval_rollout {counts.get('eval_rollout')}, eval_success {counts.get('eval_success')} (expected {each} each); "
+          f"history {history}")
+    if (counts.get("record"), counts.get("eval_rollout"), counts.get("eval_success")) != (each, each, each):
+        fail(f"the BC path launched {counts}, expected {each} in the recording and in each eval")
+    if launches["cloth_solve_env"] != 0:
+        fail(f"the BC path launched K1's port: {launches}")
+    losses = [row["bc_loss"] for row in history if "bc_loss" in row]
+    if len(losses) != 5 or not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        fail(f"bc_loss {losses}: expected 5 finite values falling from the first epoch to the fifth")
+    data = np.load(os.path.join(out, "data.npz"))
+    obs_keys = sorted(k for k in data.files if k.startswith("obs_"))
+    want = {"action": (10000, 12), "env_ids": (10000,)}
+    if sorted(data.files) != sorted(obs_keys + list(want)) or not obs_keys:
+        fail(f"data.npz holds {sorted(data.files)}")
+    for k, shape in want.items():
+        if data[k].shape != shape:
+            fail(f"data.npz {k} has shape {data[k].shape}, expected {shape}")
+    if data["env_ids"].dtype != np.int32 or any(data[k].shape[0] != 10000 for k in obs_keys):
+        fail("data.npz's env_ids are not int32, or an obs group is not 10,000 rows")
+    print(f"[bc] data.npz: {', '.join(f'{k} {data[k].shape} {data[k].dtype}' for k in data.files)}")
+    t0 = time.perf_counter()
+    results = play.main(["--run-dir", out, "--checkpoint", "cloned", "--episodes-steps", "100", "--success-threshold",
+                         "0.1", "--device", "cuda"])
+    print(f"[bc] play on cloned/: {results} ({time.perf_counter() - t0:.2f} s)")
+    if not all(np.isfinite(e["reward"]) for e in results.values()):
+        fail(f"play on the clone is not finite: {results}")
+    shutil.rmtree(out)
+
+    # one BC epoch, card vs CPU
+    small = load_config(CLOTH_CONFIG, overrides=_merge({"env": {"num_envs": 4, "kwargs": {"warmup_steps": 2}}},
+                                                       {"algorithm": {"dtype": "float32"}}))
+    gpu, cpu = trainer_from_config(small, device="cuda"), trainer_from_config(small, device="cpu")
+    state = gpu.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu.policy.load_state_dict(gpu.policy.state_dict())
+    recorded = bc.generate_data(gpu, state, n_steps=20)
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(80).reshape(4, 20))
+    first_grads, losses, means = {}, {}, {}
+    for tr in (gpu, cpu):
+        d, name = tr.device, tr.device.type
+        opt = torch.optim.Adam(tr.policy.parameters(), lr=3e-4, eps=1e-8)
+        tobs = {k[4:]: torch.tensor(v, device=d) for k, v in recorded.items() if k.startswith("obs_")}
+        acts, ids = torch.tensor(recorded["action"], device=d), torch.tensor(recorded["env_ids"], device=d).long()
+        step = opt.step
+
+        def recording(*args, tr=tr, step=step, name=name, **kwargs):
+            if name not in first_grads:
+                first_grads[name] = {k: p.grad.detach().cpu().clone() for k, p in tr.policy.named_parameters()
+                                     if p.grad is not None}
+            return step(*args, **kwargs)
+
+        opt.step = recording
+        # the epoch, one minibatch per call so that each minibatch's loss is kept
+        losses[name] = torch.stack([bc.bc_epoch(tr, opt, tobs, acts, ids, idx[None]).cpu() for idx in perm.to(d)])
+        with torch.no_grad():
+            means[name] = tr._policy_dist(tobs, ids).mean.cpu()
+    g, gc = first_grads["cuda"], first_grads["cpu"]
+    norm = torch.sqrt(sum((v ** 2).sum() for v in gc.values())).item()
+    grad_err = max((g[k] - v).abs().max().item() for k, v in gc.items()) / norm
+    loss_err = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).max().item()
+    mean_err = (means["cuda"] - means["cpu"]).abs().max().item() / max(1.0, means["cpu"].abs().max().item())
+    c = cpu.policy.state_dict()
+    errs = {k: (v.cpu() - c[k]).abs().max().item() / max(1.0, c[k].abs().max().item()) for k, v in gpu.policy.state_dict().items()}
+    worst = max(errs, key=errs.get)
+    i = (gpu.policy.state_dict()[worst].cpu() - c[worst]).abs().argmax()
+    print(f"[bc] one BC epoch (4 minibatches of 20, 4 envs, f32), card vs CPU: first-minibatch gradients max |diff| / "
+          f"global norm = {grad_err:.3e} (tol {GRAD_TOL}); the 4 minibatch losses max relative diff {loss_err:.3e} (tol "
+          f"{BC_TOL}); the policy mean on the 80 observations after the epoch, max |diff| / max(1, scale) = "
+          f"{mean_err:.3e} (tol {BC_TOL}); params max |diff| / max(1, scale) = {errs[worst]:.3e} (not gated) at "
+          f"{worst}[{int(i)}], whose first gradients are {g[worst].reshape(-1)[i].item():.3e} (card) and "
+          f"{gc[worst].reshape(-1)[i].item():.3e} (CPU) of a global norm {norm:.3e}: Adam's eps of 1e-8 turns a "
+          f"rounding-level gradient into a step of up to lr = 3e-4 of either sign; phase took "
+          f"{time.perf_counter() - t_phase:.2f} s; on {card}")
+    if not grad_err <= GRAD_TOL:
+        fail(f"the card's BC gradients disagree with the CPU's: {grad_err}")
+    if not (loss_err <= BC_TOL and mean_err <= BC_TOL):
+        fail(f"the card's BC epoch disagrees with the CPU's: losses {loss_err}, policy means {mean_err}")
+    return counts
+
+
+def runner_phase(card: str) -> None:
+    """Phase 29: `OnPolicyRunner` with its defaults (rigid_pushing, HEPi, ppo,
+    256 envs x 24 steps): `learn(1)`; `save` then `load` restores bit-exactly
+    (params, Adam states) after a further iteration moved them; and
+    `get_inference_policy` on the card within SLICE_TOL of the CPU's on the
+    same params, normaliser and observation. Neither cloth kernel launches."""
+    import torch
+
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.train.runner import OnPolicyRunner
+
+    t_phase = time.perf_counter()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    runner = OnPolicyRunner("rigid_pushing", log_dir=log_dir, device="cuda")
+    t0 = time.perf_counter()
+    runner.learn(1)
+    torch.cuda.synchronize()
+    t_learn = time.perf_counter() - t0
+    row = json.loads(open(os.path.join(log_dir, "metrics.jsonl")).readline())
+    runner.save()
+    saved = {k: v.clone() for k, v in runner.trainer.policy.state_dict().items()}
+    saved_opt = {i: {k: v.clone() for k, v in s.items()} for i, s in runner.state.actor_opt.state_dict()["state"].items()}
+    runner.learn(1)
+    runner.load(os.path.join(log_dir, "checkpoints"))
+    exact = all(torch.equal(v, saved[k]) for k, v in runner.trainer.policy.state_dict().items()) and all(
+        torch.equal(v, saved_opt[i][k]) for i, s in runner.state.actor_opt.state_dict()["state"].items() for k, v in s.items())
+    cpu = OnPolicyRunner("rigid_pushing", device="cpu")
+    cpu.trainer.policy.load_state_dict(runner.trainer.policy.state_dict())
+    cpu.state = cpu.state._replace(norm=moved(runner.state.norm, "cpu"))
+    obs = runner.state.obs
+    got, want = runner.get_inference_policy()(obs).cpu(), cpu.get_inference_policy()(moved(obs, "cpu"))
+    err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    print(f"[runner] OnPolicyRunner(rigid_pushing, hepi, ppo, 256 envs x 24 steps): learn(1) {t_learn:.2f} s, reward "
+          f"{row['train/reward']:.3f}, loss_critic {row['loss_critic']:.4f}; save/load bit-exact: {exact}; inference "
+          f"policy card vs CPU max |diff| / max(1, scale) = {err:.3e} (tol {SLICE_TOL}); cloth kernel launches "
+          f"{dict(LAUNCHES)}; phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    if not exact:
+        fail("the runner's load did not restore its saved params and Adam state bit-exactly")
+    if not err <= SLICE_TOL or not all(abs(v) < float("inf") for k, v in row.items() if k != "train/reward"):
+        fail(f"the runner's inference policy disagrees with the CPU's ({err}) or its metrics are not finite: {row}")
+    if LAUNCHES != {"cloth_solve": 0, "cloth_solve_env": 0}:
+        fail(f"the rigid runner launched a cloth kernel: {dict(LAUNCHES)}")
+    shutil.rmtree(log_dir)
+
+
+def render_phase(card: str, steps: int = 100) -> int:
+    """Phase 30: `collect_frames` of env 0 of CLOTH_CONFIG at full width for
+    `steps` deterministic steps: K2's port launches exactly 2 x (10 + steps)
+    times; each step's snapshot (grippers, particles, hook, task distance)
+    within SLICE_TOL of scale of the CPU's, which steps env 0 of the card's
+    state before that step with the card's action; the rollout stops before
+    env 0's first episode end. Then a GIF of 20 steps where matplotlib is
+    installed; where it is not, its ImportError is printed. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.envs import make_env
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.train.render import collect_frames, record_rollout
+
+    t_phase = time.perf_counter()
+    cfg = load_config(CLOTH_CONFIG)
+    trainer = trainer_from_config(cfg, device="cuda")
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    env = trainer.env
+    taken = []
+    step = env.step
+
+    def recording(s, a):
+        taken.append((moved(s, "cpu"), a[:1].cpu()))  # env 0's state before the step, and its action
+        return step(s, a)
+
+    env.step = recording
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    try:
+        t0 = time.perf_counter()
+        frames = collect_frames(trainer, state, steps)  # timed with this check's per-step copies to the host
+        t_frames = time.perf_counter() - t0
+    finally:
+        del env.step
+    launches = LAUNCHES["cloth_solve"]
+    expected = 2 * (env.cfg.warmup_steps + steps)
+    cpu_env = make_env(cfg["task"], num_envs=1, device="cpu", **(cfg["env"].get("kwargs") or {}))
+    worst = {"bodies": 0.0, "particles": 0.0, "hook": 0.0, "task_distance": 0.0}
+    for t, frame in enumerate(frames):
+        s, a = taken[t]
+        one = first_envs(s, 1)._replace(generator=torch.Generator().manual_seed(t))
+        nxt, ts = cpu_env.step(one, a)
+        h = nxt.hanger_pos[0].numpy()
+        cpu_frame = {"bodies": nxt.scene.bodies.pos[0].numpy(), "particles": nxt.scene.particles.pos[0].numpy(),
+                     "hook": np.stack([h, h + np.array([0.0, 2 * cpu_env.cfg.hanger_half_len, 0.0])]),
+                     "task_distance": ts.info["object_target_distance"][0].item()}
+        for k, ref in cpu_frame.items():
+            ref = np.asarray(ref)
+            worst[k] = max(worst[k], np.abs(np.asarray(frame[k]) - ref).max() / max(1.0, np.abs(ref).max()))
+    print(f"[render] collect_frames of env 0, {CLOTH_CONFIG} at {env.cfg.num_envs} envs: {len(frames)} frames of {steps} "
+          f"steps ({'stopped before the episode end' if len(frames) < steps else 'no episode end'}) in "
+          f"{t_frames:.2f} s; K2's port "
+          f"{launches} launches (expected {expected}); each frame vs the CPU's step from the card's state, max |diff| / "
+          f"max(1, scale): {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol {SLICE_TOL}); on {card}")
+    if launches != expected or LAUNCHES["cloth_solve_env"] != 0:
+        fail(f"the render path launched {dict(LAUNCHES)}, expected cloth_solve {expected}")
+    if not frames or max(worst.values()) > SLICE_TOL:
+        fail(f"the frames disagree with the CPU's steps: {worst}")
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_render_"), "episode.gif")
+    try:
+        t0 = time.perf_counter()
+        record_rollout(trainer, state, path, n_steps=20)
+        print(f"[render] wrote {path}: {os.path.getsize(path)} bytes, 20 steps, {time.perf_counter() - t0:.2f} s")
+    except ImportError as e:
+        print(f"[render] no GIF: {e}")
+    shutil.rmtree(os.path.dirname(path))
+    print(f"[render] phase took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def float_tensors(tree) -> list:
+    """The floating-point tensors of a tree of tuples and lists, in order."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [tree] if tree.is_floating_point() else []
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in float_tensors(x)]
+    return []
+
+
+def first_envs(tree, n: int):
+    """Every tensor of a NamedTuple tree cut to its first `n` envs."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree[:n]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(first_envs(t, n) for t in tree))
+    return tree
+
+
+def dp_phase(card: str) -> dict:
+    """Phase 31: env-axis data parallelism on one card. First the env alone:
+    rank 1 of 2's 50 envs step as rows 50..100 of the one-process env (3
+    steps from one seed with the same actions, within DP_STATE_TOL). Then two
+    processes on cuda:0 with gloo (NCCL refuses two ranks on one device)
+    train one iteration of CLOTH_CONFIG at 100 envs, 2 x 50, in f32 with 1
+    update epoch (for time, as phases 19-20), beside two one-process runs of
+    the same config and seed. Gated against the first one-process run, with
+    `tests/test_parallel.py`'s tolerances: the collect (its metrics within
+    DP_METRIC_ATOL + DP_METRIC_RTOL |a|, the env's float state within
+    DP_STATE_TOL); the first minibatch step, its gradients all-reduced,
+    within DP_FIRST_GRAD_TOL of their global norm and its metrics within
+    DP_FIRST_METRIC_SCALE of that tolerance; the second one-process run
+    equal to the first (every process runs PyTorch's deterministic
+    algorithms). After the whole 50-step update the metrics and params are
+    printed, not gated: Adam compounds the first step's rounding gap. K2's port launches 2 x (10 + 100) times in every
+    process; the 2-rank checkpoint (the whole env state, gathered) restores
+    in one process. Then a one-rank NCCL launch through the CLI trains 1
+    iteration. Returns the launch counts per process."""
+    import glob
+
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.checkpoint import restore_checkpoint
+
+    from geometry_rl_torch.envs import make_env
+    from geometry_rl_torch.parallel.mesh import env_rows
+
+    t_phase = time.perf_counter()
+    # the env part alone: rank 1's 50 envs against the one-process env's rows 50..100, from one seed and the same actions
+    kwargs = load_config(CLOTH_CONFIG)["env"].get("kwargs") or {}
+    full = make_env("cloth_hanging", num_envs=100, device="cuda", **kwargs)
+    half = make_env("cloth_hanging", num_envs=50, device="cuda", rows=env_rows(100, 1, 2), **kwargs)
+    s_full, s_half = (e.reset(torch.Generator(device="cuda").manual_seed(5)) for e in (full, half))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for _ in range(3):
+        action = torch.randn((100, full.cfg.action_dim), generator=g, device="cuda")
+        s_full, _ = full.step(s_full, action)
+        s_half, _ = half.step(s_half, action[50:])
+    env_gap = max((a - b[50:]).abs().max().item() for a, b in zip(float_tensors(s_half), float_tensors(s_full)))
+    print(f"[dp] the env of rank 1 of 2 (50 envs) against rows 50..100 of the one-process env, 3 steps from one seed "
+          f"with the same actions: max |diff| {env_gap:.3e} (tol {DP_STATE_TOL})")
+    if not env_gap <= DP_STATE_TOL:
+        fail(f"rank 1's env is not the row block of the one-process env: {env_gap}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    overrides = ["collector.total_frames=10000", "algorithm.objective.ppo_epochs=1", "algorithm.dtype=float32",
+                 "logger.checkpoint.save_interval=1"]
+    def start(name, backend=None, rank=None, world=None, port=None):
+        env = dict(os.environ, FIRST_MINIBATCH=os.path.join(root, f"first_{name}_{rank or 0}.pt"),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")  # what cuBLAS needs to be deterministic
+        if rank is not None:
+            env.update(GEOMRL_COORDINATOR=f"localhost:{port}", GEOMRL_NUM_PROCESSES=str(world), GEOMRL_PROCESS_ID=str(rank))
+        cmd = [sys.executable, "-c", DP_WORKER, "--config", CLOTH_CONFIG, "--device", "cuda",
+               *(["--dist-backend", backend] if backend else []), "--override", *overrides, f"logger.log_dir={root}/{name}"]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+
+    def finish(procs, timeout=600):
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0].decode())
+        finally:
+            for p in procs:  # never leave a rank blocked in a collective
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, out in zip(procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"chip_smoke: a data-parallel process exited {p.returncode}:\n{out[-4000:]}")
+        return [json.loads(out.rsplit("LAUNCHES ", 1)[1].splitlines()[0]) for out in outs], outs
+
+    def run_dir(name):
+        runs = glob.glob(os.path.join(root, name, "*", "metrics.jsonl"))
+        if len(runs) != 1:
+            fail(f"{name}: expected one run, found {runs}")
+        return os.path.dirname(runs[0])
+
+    port = free_port()
+    t0 = time.perf_counter()
+    launches, outs = finish([start("mh", "gloo", r, 2, port) for r in range(2)] + [start("one"), start("again")])
+    t_runs = time.perf_counter() - t0
+    expected = {"cloth_solve": 2 * (10 + 100), "cloth_solve_env": 0}
+    mh, one, again = run_dir("mh"), run_dir("one"), run_dir("again")
+
+    def rows_of(d):
+        return [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+
+    def excess_of(got, want):
+        """|got - want| over the tolerance; NaN on both sides (no episode ended) agrees."""
+        if want != want or got != got:
+            return 0.0 if want != want and got != got else float("inf")
+        return abs(got - want) / (DP_METRIC_ATOL + DP_METRIC_RTOL * abs(want))
+
+    def compare(d, ref):
+        """Run `d` against `ref` after the whole update: (the 5 worst metrics as (excess, name, value, reference),
+        the params' worst excess over their tolerance and its tensor, the env state's max |diff|)."""
+        excess = sorted(((excess_of(b[k], v), k, b[k], v) for a, b in zip(rows_of(ref), rows_of(d)) for k, v in a.items()
+                         if k not in TIMING_KEYS), reverse=True)
+        ck, ck_ref = (torch.load(os.path.join(x, "checkpoints", "0", "state.pt"), map_location="cpu", weights_only=True)
+                      for x in (d, ref))
+        params = max((((ck[p][k] - v).abs() / (DP_PARAM_ATOL + DP_PARAM_RTOL * v.abs())).max().item(), f"{p}.{k}")
+                     for p in ("policy", "critic") for k, v in ck_ref[p].items())
+        state = max((a - b).abs().max().item() for a, b in zip(float_tensors(ck["state"]["env_state"]),
+                                                               float_tensors(ck_ref["state"]["env_state"])))
+        return excess[:5], params, state
+
+    def describe(excess, params, state):
+        worst = ", ".join(f"{k} {got:.6g} vs {ref:.6g} ({e:.3f})" for e, k, got, ref in excess)
+        return (f"metrics at most {excess[0][0]:.3f} of their tolerance ({worst}); params at most {params[0]:.3f} of "
+                f"theirs ({params[1]}); env float state max |diff| {state:.3e}")
+
+    def first_gap(name):
+        """The first minibatch step of run `name` (rank 0's, its gradients all-reduced) against the one-process
+        run's: (gradients' max |diff| over their global norm, metrics' worst excess over their tolerance)."""
+        got, ref = (torch.load(os.path.join(root, f"first_{n}_0.pt"), map_location="cpu", weights_only=True)
+                    for n in (name, "one"))
+        norm = torch.sqrt(sum((g ** 2).sum() for g in ref["grads"].values())).item()
+        gaps = sorted((((got["grads"][k] - g).abs().max().item() / norm, k, got["grads"][k].reshape(-1)[(got["grads"][k] - g).abs().argmax()].item(),
+                        g.reshape(-1)[(got["grads"][k] - g).abs().argmax()].item(), g.abs().max().item()) for k, g in ref["grads"].items()), reverse=True)
+        metrics = sorted(((excess_of(got["metrics"][k].item(), v.item()), k, got["metrics"][k].item(), v.item())
+                          for k, v in ref["metrics"].items()), reverse=True)
+        print(f"[dp] first minibatch of {name} vs one: worst gradients (gap / norm {norm:.4g}, tensor, got, want, tensor max) "
+              f"{[(f'{e:.3e}', k, f'{a:.6g}', f'{b:.6g}', f'{m:.4g}') for e, k, a, b, m in gaps[:3]]}; worst metrics "
+              f"{[(f'{e:.3f}', k, f'{a:.7g}', f'{b:.7g}') for e, k, a, b in metrics[:3]]}")
+        return gaps[0][0], metrics[0][0]
+
+    dp_cmp, rerun_cmp = compare(mh, one), compare(again, one)
+    dp_first, rerun_first = first_gap("mh"), first_gap("again")
+    # the metrics the collect alone decides: they do not depend on the update's compounding
+    collect_keys = ("train/reward", "train/episodes", "train/explained_variance", "train/frames")
+    collect_err = max(excess_of(b[k], a[k]) for a, b in zip(rows_of(one), rows_of(mh)) for k in collect_keys)
+    cfg = load_config(None, json.load(open(os.path.join(mh, "hparams.json"))))
+    fresh = trainer_from_config(cfg, device="cuda")
+    restored = restore_checkpoint(os.path.join(mh, "checkpoints"), fresh, fresh.init(torch.Generator(device="cuda").manual_seed(0)), 0)
+    ck_mh = torch.load(os.path.join(mh, "checkpoints", "0", "state.pt"), map_location="cpu", weights_only=True)
+    restore_ok = torch.equal(restored.env_state.scene.particles.pos.cpu(), ck_mh["state"]["env_state"][0][1][0])
+    r0, r1 = rows_of(mh)[0], rows_of(one)[0]
+    print(f"[dp] {CLOTH_CONFIG}, 100 envs, f32, 1 update epoch: 2 gloo ranks x 50 envs on cuda:0 and two one-process "
+          f"runs x 100, all four at once in {t_runs:.2f} s; 2 ranks: iteration {r0['train/iteration_time']:.3f} s = "
+          f"collect {r0['train/collect_time']:.3f} s + update {r0['train/update_time']:.3f} s; one process: "
+          f"{r1['train/iteration_time']:.3f} s = {r1['train/collect_time']:.3f} + {r1['train/update_time']:.3f} s; "
+          f"launches per process {launches} (expected {expected} each); the 2-rank checkpoint restores in one process: "
+          f"{restore_ok}; on {card}")
+    nondeterministic = sorted({line.strip() for out in outs for line in out.splitlines() if "deterministic" in line})
+    print(f"[dp] deterministic algorithms on; the ops that have none warned: {nondeterministic or 'none'}")
+    print(f"[dp] 2 ranks vs one process: the collect's metrics at most {collect_err:.3f} of their tolerance, env float "
+          f"state max |diff| {dp_cmp[2]:.3e} (tol {DP_STATE_TOL}); the first minibatch step: gradients max |diff| / "
+          f"global norm {dp_first[0]:.3e} (tol {DP_FIRST_GRAD_TOL}), metrics at most {dp_first[1]:.3f} of their "
+          f"tolerance (tol {DP_FIRST_METRIC_SCALE})")
+    print(f"[dp] after the 50-step update (not gated: each step compounds the rounding of the last): 2 ranks vs one "
+          f"process: {describe(*dp_cmp)}")
+    print(f"[dp] the same for one process vs the same run again (deterministic algorithms: expected equal): "
+          f"{describe(*rerun_cmp)}; first minibatch step: gradients {rerun_first[0]:.3e}, metrics {rerun_first[1]:.3f}")
+    if any(n != expected for n in launches):
+        fail(f"the data-parallel processes launched {launches}, expected {expected} each")
+    if not (collect_err <= 1.0 and dp_cmp[2] <= DP_STATE_TOL and dp_first[0] <= DP_FIRST_GRAD_TOL
+            and dp_first[1] <= DP_FIRST_METRIC_SCALE and rerun_first == (0.0, 0.0) and restore_ok):
+        fail(f"2 ranks disagree with one process: collect metrics {collect_err}, env state {dp_cmp[2]}, first "
+             f"minibatch gradients {dp_first[0]} and metrics {dp_first[1]} (one process against itself: "
+             f"{rerun_first}), restore {restore_ok}")
+    t0 = time.perf_counter()
+    (nccl_launches,), (out,) = finish([start("nccl", None, 0, 1, free_port())])
+    row = json.loads(open(os.path.join(run_dir("nccl"), "metrics.jsonl")).readline())
+    print(f"[dp] one-rank NCCL launch through the CLI: {time.perf_counter() - t0:.2f} s, iteration "
+          f"{row['train/iteration_time']:.3f} s, reward {row['train/reward']:.3f}, launches {nccl_launches}; "
+          f"{[line for line in out.splitlines() if line.startswith('data-parallel')]}")
+    if nccl_launches != expected or "(nccl)" not in out or not all(abs(v) < float("inf") for v in row.values()):
+        fail(f"the NCCL launch: {nccl_launches}, {out[-2000:]}")
+    shutil.rmtree(root)
+    print(f"[dp] phase took {time.perf_counter() - t_phase:.2f} s")
+    return {"rank": launches[0], "one": launches[2], "nccl": nccl_launches}
+
+
+# one process of phase 31: the training CLI with PyTorch's deterministic
+# algorithms (the backward's scatter-adds otherwise sum in another order every
+# run), the first minibatch step's gradients (all-reduced, under data
+# parallelism) and metrics saved to $FIRST_MINIBATCH, then the cloth kernels'
+# launch counts printed
+DP_WORKER = """
+import json, os, sys, warnings, torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+warnings.simplefilter("once")
+from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+from geometry_rl_torch.train import cli, ppo
+step = ppo.Trainer._minibatch_step
+def first(self, state, mb, *args, **kwargs):
+    out = step(self, state, mb, *args, **kwargs)
+    if not os.path.exists(os.environ["FIRST_MINIBATCH"]):
+        grads = {f"{m}.{n}": p.grad.cpu() for m in ("policy", "critic") for n, p in getattr(self, m).named_parameters()
+                 if p.grad is not None}
+        torch.save({"grads": grads, "metrics": {k: v.cpu() for k, v in out[0].items()}}, os.environ["FIRST_MINIBATCH"])
+    return out
+ppo.Trainer._minibatch_step = first
+cli.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps(LAUNCHES))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def new_phases(card: str, only=None) -> dict:
+    """Phases 28-31 (those in `only`, where given), each printing its
+    seconds; returns their launch counts."""
+    t0 = time.perf_counter()
+    out = {}
+    if not only or 28 in only:
+        out["bc"] = bc_phase(card)  # ---- 28. behaviour cloning at full width
+    if not only or 29 in only:
+        runner_phase(card)  # ---- 29. the OnPolicyRunner workflow
+    if not only or 30 in only:
+        out["render"] = render_phase(card)  # ---- 30. rollout frames on the card
+    if not only or 31 in only:
+        out["dp"] = dp_phase(card)  # ---- 31. data parallelism on one card
+    print(f"[new] phases 28-31 took {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -805,6 +1378,11 @@ def main() -> int:
             fail(f"ptxas reported nothing for {MAIN_PATH_KERNELS[lib]}")
         if main.get("spill_store_bytes", 0) or main.get("spill_load_bytes", 0):
             fail(f"{MAIN_PATH_KERNELS[lib]} spills registers: {main}")
+
+    if "--new-phases" in sys.argv:  # phases 28-31 alone (or those listed after it), for work on them; no result line
+        listed = sys.argv[sys.argv.index("--new-phases") + 1:]
+        new_phases(card, {int(p) for p in listed[0].split(",")} if listed and listed[0][0].isdigit() else None)
+        return 1 if FAILURES else 0
 
     # ---- 3. kernels vs plain version ---------------------------------------
     t_phase = time.perf_counter()
@@ -993,6 +1571,11 @@ def main() -> int:
     for algo in ("kl_ppo", "ppo"):
         update_profile_phase(card, RIGID_CONFIG, collect_steps=10, overrides=(f"algo={algo}",))
 
+    new = new_phases(card)
+
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} gate(s) failed: {FAILURES}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"geometry_rl_torch/csrc/{name}.cu",
          "replaces": f"geometry_rl_tpu/sim/pallas_cloth.py:{line}", "launches": n_launch,
@@ -1001,7 +1584,10 @@ def main() -> int:
          "bound_by": kernel_stats[(name, 100, False)][4], "library_ms": None,
          "ms_b1000": kernel_stats[(name, 1000, False)][1], "bound_ms_b1000": kernel_stats[(name, 1000, False)][3],
          "ms_self_b4": kernel_stats[(name, 4, True)][1], "launches_empn_training": empn_launches[name],
-         "launches_ppo_training": ppo_launches[name], "launches_papi_training": papi_launches[name]}
+         "launches_ppo_training": ppo_launches[name], "launches_papi_training": papi_launches[name],
+         **({"launches_bc_recording": new["bc"]["record"], "launches_bc_evals": new["bc"]["eval_rollout"] + new["bc"]["eval_success"],
+             "launches_render": new["render"], "launches_dp_rank": new["dp"]["rank"]["cloth_solve"]}
+            if name == "cloth_solve" else {})}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ]}))
     print(smi)

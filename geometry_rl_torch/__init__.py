@@ -1,7 +1,7 @@
 """geometry_rl_torch — the PyTorch / CUDA port of `geometry_rl_tpu`.
 
 The JAX package stays the reference; this package mirrors its layout module
-for module (sim/, envs/, graphs/, models/, rl/, train/, utils/) and is held
+for module (sim/, envs/, graphs/, models/, rl/, train/, utils/, parallel/) and is held
 against it by the `tests/test_torch_*.py` parity tests.
 
 It imports torch and numpy, never jax. The YAML task configs are read as data

@@ -178,9 +178,10 @@ def available_configs():
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def trainer_from_config(cfg: Dict, device="cuda"):
+def trainer_from_config(cfg: Dict, device="cuda", dp=None):
     """Build the Trainer from a loaded config dict. Parameters stay float32;
-    activations run in `algorithm.dtype`."""
+    activations run in `algorithm.dtype`. With `dp` it is this rank's part
+    of an env-axis data-parallel run (`train.builders.build_agent`)."""
     from .train.builders import build_agent
     from .train.ppo import TrainConfig
 
@@ -245,6 +246,7 @@ def trainer_from_config(cfg: Dict, device="cuda"):
         train_cfg=train_cfg,
         env_kwargs=cfg["env"].get("kwargs") or {},
         device=device,
+        dp=dp,
         contextual_std=policy.get("contextual_std", True),
         share_action_dim=policy.get("share_action_dim", True),
         init_std=policy.get("init_std", 1.0),

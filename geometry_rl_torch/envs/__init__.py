@@ -15,13 +15,14 @@ from .rope import RopeEnv, RopeEnvState, RopeTaskCfg, rope_closing_cfg, rope_sha
 ROPE_TASKS = {"rope_closing": rope_closing_cfg, "rope_shaping": rope_shaping_cfg}
 
 
-def make_env(task: str, num_envs: int = 40, device="cuda", **kwargs):
+def make_env(task: str, num_envs: int = 40, device="cuda", rows=None, **kwargs):
     """Env factory keyed by task name (the four rigid tasks, the two rope
-    tasks and cloth_hanging)."""
+    tasks and cloth_hanging); `rows` (`parallel.mesh.Rows`) builds this
+    process's row block of a data-parallel batch of `rows.total` envs."""
     if task in TASK_REGISTRY:
-        return RigidEnv(TASK_REGISTRY[task](num_envs=num_envs, **kwargs), device=device)
+        return RigidEnv(TASK_REGISTRY[task](num_envs=num_envs, **kwargs), device=device, rows=rows)
     if task == "cloth_hanging":
-        return ClothEnv(cloth_hanging_cfg(num_envs=num_envs, **kwargs), device=device)
+        return ClothEnv(cloth_hanging_cfg(num_envs=num_envs, **kwargs), device=device, rows=rows)
     if task in ROPE_TASKS:
-        return RopeEnv(ROPE_TASKS[task](num_envs=num_envs, **kwargs), device=device)
+        return RopeEnv(ROPE_TASKS[task](num_envs=num_envs, **kwargs), device=device, rows=rows)
     raise ValueError(f"Unknown task {task!r}; available: {sorted(TASK_REGISTRY) + sorted(ROPE_TASKS) + ['cloth_hanging']}")

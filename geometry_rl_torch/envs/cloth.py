@@ -23,6 +23,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import Rows, draw_rows
 from ..sim.cloth_solve import ClothSolveSpec, cloth_position_solve, pack_groups
 from ..sim.types import ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
 from ..sim.xpbd import (
@@ -184,8 +185,12 @@ class ClothEnvState(NamedTuple):
 
 
 class ClothEnv:
-    def __init__(self, cfg: ClothTaskCfg, device="cuda"):
+    def __init__(self, cfg: ClothTaskCfg, device="cuda", rows: Optional[Rows] = None):
+        """`rows` makes the env one process's row block of a data-parallel
+        batch: `cfg.num_envs` of `rows.total` envs, drawing at the global
+        width (`parallel.mesh`)."""
         self.cfg = cfg
+        self.rows = rows
         self.device = device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ClothEnv runs on the card by default and torch finds no CUDA device; "
@@ -220,8 +225,9 @@ class ClothEnv:
         else:
             raise ValueError(f"hole_split must be train|test, got {cfg.hole_split!r}")
         removed, boundary = zip(*(build_hole_variant(p) for p in placements))
-        removed = np.stack(removed)[np.arange(B) % cfg.num_holes]  # [B, P]
-        boundary = np.stack(boundary)[np.arange(B) % cfg.num_holes]  # [B, K]
+        env_index = np.arange(B) + (0 if rows is None else rows.index.start)  # global env indices
+        removed = np.stack(removed)[env_index % cfg.num_holes]  # [B, P]
+        boundary = np.stack(boundary)[env_index % cfg.num_holes]  # [B, K]
         self.hole_mask = t(removed)  # 1 = removed
         self.boundary_idx = t(boundary, torch.int64)
 
@@ -370,7 +376,7 @@ class ClothEnv:
         zeros = torch.zeros(B, device=dev)
 
         def uniform(lo, hi):
-            return sample_uniform(generator, lo, hi, (B,), dev)
+            return draw_rows(lambda s: sample_uniform(generator, lo, hi, s, dev), (B,), self.rows)
 
         hanger = self.hanger_base + torch.stack(
             [uniform(-cfg.hanger_xz_range, cfg.hanger_xz_range), zeros, uniform(-cfg.hanger_xz_range, cfg.hanger_xz_range)],

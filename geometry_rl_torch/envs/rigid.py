@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Rows, draw_rows
 from ..sim.shapes import PUSHING_SHAPE_NAMES, SHAPE_NAMES, ShapeSet, build_shape_set, ground_sdf, hole_plate_sdf, polygon_sdf_2d
 from ..sim.types import FixedJointSpec, RigidBodySpec, RigidBodyState, SceneState, box_inertia
 from ..sim.xpbd import BodyPairContact, ContactSet, with_bodies, step_physics
@@ -149,8 +150,12 @@ def _axis_mask(bits: int):
 class RigidEnv:
     """Batched rigid-task environment on one device."""
 
-    def __init__(self, cfg: RigidTaskCfg, device="cuda"):
+    def __init__(self, cfg: RigidTaskCfg, device="cuda", rows: Optional[Rows] = None):
+        """`rows` makes the env one process's row block of a data-parallel
+        batch: `cfg.num_envs` of `rows.total` envs, drawing at the global
+        width (`parallel.mesh`)."""
         self.cfg = cfg
+        self.rows = rows
         self.device = device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RigidEnv runs on the card by default and torch finds no CUDA device; "
@@ -168,7 +173,8 @@ class RigidEnv:
             device=device,
         )
         # round-robin multi-asset assignment; per-env gathered geometry
-        self.shape_ids = torch.arange(B, device=device) % cfg.num_shapes
+        offset = 0 if rows is None else rows.index.start
+        self.shape_ids = torch.arange(offset, offset + B, device=device) % cfg.num_shapes
         ss = self.shape_set
         self.obj_points = ss.points[self.shape_ids]  # [B, P, 3]
         self.obj_point_mask = ss.point_mask[self.shape_ids]
@@ -301,7 +307,7 @@ class RigidEnv:
         zeros = torch.zeros(B, device=dev)
 
         def uniform(lo, hi, shape):
-            return sample_uniform(generator, lo, hi, shape, dev)
+            return draw_rows(lambda s: sample_uniform(generator, lo, hi, s, dev), shape, self.rows)
 
         obj_xy = uniform(*cfg.object_xy_range, (B, 2))
         obj_z = uniform(*cfg.object_z_range, (B, 1))

@@ -28,11 +28,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Rows, draw_rows
 from ..sim.shapes import ground_sdf
 from ..sim.types import ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
 from ..sim.xpbd import BodyAttachment, DistanceGroup, ParticleSDFContact, ParticleSpec, step_physics
@@ -228,8 +229,12 @@ class RopeEnvState(NamedTuple):
 class RopeEnv:
     """Batched rope-task environment on one device."""
 
-    def __init__(self, cfg: RopeTaskCfg, device="cuda"):
+    def __init__(self, cfg: RopeTaskCfg, device="cuda", rows: Optional[Rows] = None):
+        """`rows` makes the env one process's row block of a data-parallel
+        batch: `cfg.num_envs` of `rows.total` envs, drawing at the global
+        width (`parallel.mesh`)."""
         self.cfg = cfg
+        self.rows = rows
         self.device = device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RopeEnv runs on the card by default and torch finds no CUDA device; "
@@ -335,14 +340,17 @@ class RopeEnv:
         B, dev = cfg.num_envs, self.device
 
         def uniform(lo, hi, shape=(B,)):
-            return sample_uniform(generator, lo, hi, shape, dev)
+            return draw_rows(lambda s: sample_uniform(generator, lo, hi, s, dev), shape, self.rows)
+
+        def rand():
+            return draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (B,), self.rows)
 
         links, cubes, center = self.rest_links, self.rest_cubes, self.rest_center
         if cfg.is_shaping:
             target_yaw = uniform(*cfg.target_yaw_range)
             (lo1, hi1), (lo2, hi2) = cfg.shaping_rot_ranges
-            pick = torch.rand((B,), generator=generator, device=dev) < 0.5
-            u = torch.rand((B,), generator=generator, device=dev)
+            pick = rand() < 0.5
+            u = rand()
             off = torch.where(pick, u * (hi2 - lo2) + lo2, u * (hi1 - lo1) + lo1)
             angle = target_yaw + off
             hanger_xy = self.zeros_b2

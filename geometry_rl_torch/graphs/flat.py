@@ -12,6 +12,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .rigid import noise_like
+
 # normalised groups, in a fixed feature order; `infos` carries graph-only
 # integer metadata and is excluded, as are the raw un-normalised vector copies
 FLAT_GROUPS = ("scalars", "norm_position_vectors", "norm_velocity_vectors")
@@ -45,6 +47,6 @@ class FlatObsBuilder:
         for g in FLAT_GROUPS:
             x = tobs[g].reshape(tobs[g].shape[0], -1)
             if noise_generator is not None and self.training_noise and g != "scalars":
-                x = x + self.training_noise_std * torch.randn(x.shape, generator=noise_generator, dtype=x.dtype, device=x.device)
+                x = x + noise_like(x, noise_generator, self.training_noise_std)
             parts.append(x)
         return None, torch.cat(parts, dim=-1)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..envs.base import ObsSpec
+from ..parallel.mesh import RowGenerator, draw_rows
 from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet
 
 NODE_TYPES = ("object_geometry", "grippers", "target_geometry")  # one-hot order
@@ -65,10 +66,16 @@ def apply_training_noise(vectors: Dict[str, torch.Tensor], generator: torch.Gene
     """Gaussian data-augmentation noise on the per-node vector features,
     drawn from `generator` node type by node type: applied only on training
     forwards, drawn fresh per network update."""
-    return {
-        nt: v + std * torch.randn(v.shape, generator=generator, dtype=v.dtype, device=v.device)
-        for nt, v in vectors.items()
-    }
+    return {nt: v + noise_like(v, generator, std) for nt, v in vectors.items()}
+
+
+def noise_like(x: torch.Tensor, generator, std: float) -> torch.Tensor:
+    """std * N(0, 1) noise of x's shape from `generator`; from a
+    `RowGenerator`, this process's rows of a draw over the global minibatch."""
+    if isinstance(generator, RowGenerator):
+        return std * draw_rows(lambda s: torch.randn(s, generator=generator.generator, dtype=x.dtype, device=x.device),
+                               x.shape, generator.rows)
+    return std * torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
 
 
 def split_group(obs: torch.Tensor, spec: ObsSpec, group: str) -> Dict[str, torch.Tensor]:

@@ -5,9 +5,11 @@ decompositions of the KL, Frobenius and commutative W2 divergences."""
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import Rows, draw_rows
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -40,8 +42,11 @@ def entropy(p: DiagGaussian) -> torch.Tensor:
     return 0.5 * (k * (LOG_2PI + 1.0) + log_determinant(p.std))
 
 
-def sample(generator: torch.Generator, p: DiagGaussian, shape: tuple = ()) -> torch.Tensor:
-    eps = torch.randn(tuple(shape) + p.mean.shape, generator=generator, dtype=p.mean.dtype, device=p.mean.device)
+def sample(generator: torch.Generator, p: DiagGaussian, shape: tuple = (), rows: Optional[Rows] = None) -> torch.Tensor:
+    """A draw from p; with `rows`, this process's rows of a draw over the
+    global batch (env-axis data parallelism)."""
+    eps = draw_rows(lambda s: torch.randn(s, generator=generator, dtype=p.mean.dtype, device=p.mean.device),
+                    tuple(shape) + p.mean.shape, rows)
     return p.mean + eps * p.std
 
 

@@ -2,7 +2,9 @@
 (trust-region projected), clipped PPO and adaptive KL-penalty PPO.
 
 Losses take the already-computed policy outputs (DiagGaussian) and stay
-model-agnostic.
+model-agnostic. Their minibatch reductions go through `parallel.mesh`'s
+`batch_*` functions: plain means in one process; under env-axis data
+parallelism each process's share of the global minibatch.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import batch_global_mean, batch_logsumexp, batch_mean, batch_size, batch_std, batch_total
 from . import gaussian as G
 from .gaussian import DiagGaussian
 from .projections.base import BaseProjection
@@ -46,19 +49,20 @@ def clipped_value_loss(old_value, value, value_target, clip_value: float, kind: 
     base = _distance_loss(value, value_target, kind)
     value_clipped = old_value + torch.clamp(value - old_value, -clip_value, clip_value)
     clipped = _distance_loss(value_clipped, value_target, kind)
-    clip_fraction = (clipped > base).to(value.dtype).mean()
+    clip_fraction = batch_mean((clipped > base).to(value.dtype))
     return torch.maximum(base, clipped), clip_fraction
 
 
 def _normalize_advantage(adv: torch.Tensor) -> torch.Tensor:
     # jnp.std: no Bessel correction
-    return (adv - adv.mean()) / torch.clamp(adv.std(correction=0), min=1e-6)
+    mean = batch_global_mean(adv)
+    return (adv - mean) / torch.clamp(batch_std(adv, mean), min=1e-6)
 
 
 def _ess(log_weight: torch.Tensor) -> torch.Tensor:
     """Effective sample size / batch."""
-    ess = torch.exp(2.0 * torch.logsumexp(log_weight, 0) - torch.logsumexp(2.0 * log_weight, 0))
-    return ess / log_weight.shape[0]
+    ess = torch.exp(2.0 * batch_logsumexp(log_weight) - batch_logsumexp(2.0 * log_weight))
+    return ess / batch_size(log_weight)
 
 
 def trpl_loss(
@@ -90,28 +94,28 @@ def trpl_loss(
     log_weight = log_prob - inputs.sample_log_prob
 
     # importance-weighted gain, no ratio clipping
-    loss_objective = -(torch.exp(log_weight) * advantage).mean()
+    loss_objective = -batch_mean(torch.exp(log_weight) * advantage)
     trust_region = projection.trust_region_loss(new_dist, proj_dist)
 
     actor_loss = loss_objective + trust_region
     entropy = G.entropy(proj_dist)
     if entropy_bonus:
-        actor_loss = actor_loss - entropy_coef * entropy.mean()
+        actor_loss = actor_loss - entropy_coef * batch_mean(entropy)
 
     critic_per_sample, clip_fraction = clipped_value_loss(
         inputs.old_value, value, inputs.value_target, clip_value, loss_critic_type
     )
-    critic_loss = critic_coef * critic_per_sample.mean()
+    critic_loss = critic_coef * batch_mean(critic_per_sample)
 
     metrics = {
         "loss_objective": loss_objective,
         "loss_trust_region": trust_region,
-        "loss_entropy": -entropy_coef * entropy.mean(),
+        "loss_entropy": -entropy_coef * batch_mean(entropy),
         "loss_critic": critic_loss,
-        "entropy": entropy.mean(),
+        "entropy": batch_mean(entropy),
         "ESS": _ess(log_weight),
         "value_clip_fraction": clip_fraction,
-        "policy_std": new_dist.std.mean(),
+        "policy_std": batch_mean(new_dist.std),
         "policy_std_min": new_dist.std.min(),
     }
     # constraint metrics of the new dist against its projection
@@ -174,34 +178,34 @@ def kl_pen_ppo_loss(
     gain = torch.exp(log_weight) * advantage
     # the mean / cov split says where the KL budget goes
     kl_maha_part, kl_cov_part = G.kl_parts(old_dist, new_dist)
-    kl_mean = (kl_maha_part + kl_cov_part).mean()
-    actor_loss = -gain.mean() + beta * kl_mean
+    kl_mean = batch_mean(kl_maha_part + kl_cov_part)
+    actor_loss = -batch_mean(gain) + beta * kl_mean
 
     entropy = G.entropy(new_dist)
     if entropy_bonus:
-        actor_loss = actor_loss - entropy_coef * entropy.mean()
+        actor_loss = actor_loss - entropy_coef * batch_mean(entropy)
 
     critic_per_sample, clip_fraction = _critic_loss(value, inputs, clip_value, loss_critic_type)
-    critic_loss = critic_coef * critic_per_sample.mean()
+    critic_loss = critic_coef * batch_mean(critic_per_sample)
 
     if adapt:
-        new_beta = adapt_kl_beta(beta, kl_mean.detach(), dtarg, increment, decrement)
+        new_beta = adapt_kl_beta(beta, batch_total(kl_mean), dtarg, increment, decrement)
     else:
         new_beta = torch.clamp(beta, KL_PEN_BETA_MIN, KL_PEN_BETA_MAX)
 
     metrics = {
-        "loss_objective": -gain.mean(),
-        "loss_entropy": -entropy_coef * entropy.mean() if entropy_bonus else torch.zeros((), device=value.device),
+        "loss_objective": -batch_mean(gain),
+        "loss_entropy": -entropy_coef * batch_mean(entropy) if entropy_bonus else torch.zeros((), device=value.device),
         "loss_critic": critic_loss,
-        "entropy": entropy.mean(),
+        "entropy": batch_mean(entropy),
         "ESS": _ess(log_weight),
         "kl": kl_mean,
-        "kl_mean_part": kl_maha_part.mean(),
-        "kl_cov_part": kl_cov_part.mean(),
+        "kl_mean_part": batch_mean(kl_maha_part),
+        "kl_cov_part": batch_mean(kl_cov_part),
         "kl_penalty_beta": beta,
         "kl_penalty_beta_max": beta,
         "value_clip_fraction": clip_fraction,
-        "policy_std": new_dist.std.mean(),
+        "policy_std": batch_mean(new_dist.std),
         "policy_std_min": new_dist.std.min(),
     }
     return actor_loss, critic_loss, new_beta, metrics
@@ -230,25 +234,25 @@ def ppo_clip_loss(
     gain1 = torch.exp(log_weight) * advantage
     log_weight_clip = torch.clamp(log_weight, math.log1p(-clip_epsilon), math.log1p(clip_epsilon))
     gain2 = torch.exp(log_weight_clip) * advantage
-    loss_objective = -torch.minimum(gain1, gain2).mean()
+    loss_objective = -batch_mean(torch.minimum(gain1, gain2))
 
     actor_loss = loss_objective
     entropy = G.entropy(new_dist)
     if entropy_bonus:
-        actor_loss = actor_loss - entropy_coef * entropy.mean()
+        actor_loss = actor_loss - entropy_coef * batch_mean(entropy)
 
     critic_per_sample, clip_fraction = _critic_loss(value, inputs, clip_value, loss_critic_type)
-    critic_loss = critic_coef * critic_per_sample.mean()
+    critic_loss = critic_coef * batch_mean(critic_per_sample)
 
     metrics = {
         "loss_objective": loss_objective,
-        "loss_entropy": -entropy_coef * entropy.mean(),
+        "loss_entropy": -entropy_coef * batch_mean(entropy),
         "loss_critic": critic_loss,
-        "entropy": entropy.mean(),
+        "entropy": batch_mean(entropy),
         "ESS": _ess(log_weight),
-        "clip_fraction": (gain2 < gain1).to(value.dtype).mean(),
+        "clip_fraction": batch_mean((gain2 < gain1).to(value.dtype)),
         "value_clip_fraction": clip_fraction,
-        "policy_std": new_dist.std.mean(),
+        "policy_std": batch_mean(new_dist.std),
         "policy_std_min": new_dist.std.min(),
     }
     return actor_loss, critic_loss, metrics

@@ -29,18 +29,20 @@ def vecnorm_init(stat_shape: tuple, device=None, dtype=torch.float32) -> VecNorm
     )
 
 
-def vecnorm_update(state: VecNormState, x: torch.Tensor, decay: float = 0.99999) -> VecNormState:
+def vecnorm_update(state: VecNormState, x: torch.Tensor, decay: float = 0.99999, dp=None) -> VecNormState:
     """Fold a batch into the running stats; every dim of `x` beyond the stat
-    shape is reduced."""
+    shape is reduced. With `dp` (`parallel.mesh.DataParallel`) `x` is this
+    process's share of the batch: the sums and the count are totalled over
+    the processes before they are folded in."""
     reduce_dims = tuple(range(x.ndim - state.sum.ndim))
     n = 1
     for d in reduce_dims:
         n *= x.shape[d]
-    return VecNormState(
-        sum=state.sum * decay + x.sum(dim=reduce_dims),
-        ssq=state.ssq * decay + (x * x).sum(dim=reduce_dims),
-        count=state.count * decay + n,
-    )
+    s, q = x.sum(dim=reduce_dims), (x * x).sum(dim=reduce_dims)
+    if dp is not None:
+        s, q = dp.all_reduce([s, q])
+        n *= dp.world
+    return VecNormState(sum=state.sum * decay + s, ssq=state.ssq * decay + q, count=state.count * decay + n)
 
 
 def vecnorm_mean_std(state: VecNormState, eps: float = 1e-2) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -33,13 +33,14 @@ def obs_norm_init(scalar_dim: int, device=None) -> ObsNormState:
     )
 
 
-def obs_norm_update(state: ObsNormState, obs: Dict[str, torch.Tensor]) -> ObsNormState:
-    """Fold one batch of raw observations into the running stats."""
+def obs_norm_update(state: ObsNormState, obs: Dict[str, torch.Tensor], dp=None) -> ObsNormState:
+    """Fold one batch of raw observations into the running stats (with `dp`,
+    this process's share of a data-parallel batch)."""
     B = obs["position_vectors"].shape[0]
     return ObsNormState(
-        position=vecnorm_update(state.position, obs["position_vectors"].reshape(B, -1, 3), DECAY),
-        velocity=vecnorm_update(state.velocity, obs["velocity_vectors"].reshape(B, -1, 3), DECAY),
-        scalars=vecnorm_update(state.scalars, obs["scalars"], DECAY),
+        position=vecnorm_update(state.position, obs["position_vectors"].reshape(B, -1, 3), DECAY, dp),
+        velocity=vecnorm_update(state.velocity, obs["velocity_vectors"].reshape(B, -1, 3), DECAY, dp),
+        scalars=vecnorm_update(state.scalars, obs["scalars"], DECAY, dp),
     )
 
 
@@ -65,9 +66,9 @@ def obs_norm_apply(state: ObsNormState, obs: Dict[str, torch.Tensor]) -> Dict[st
 
 
 def obs_norm_step(
-    state: ObsNormState, obs: Dict[str, torch.Tensor], update: bool = True
+    state: ObsNormState, obs: Dict[str, torch.Tensor], update: bool = True, dp=None
 ) -> Tuple[ObsNormState, Dict[str, torch.Tensor]]:
     """Update-then-normalize, matching the reference's call order."""
     if update:
-        state = obs_norm_update(state, obs)
+        state = obs_norm_update(state, obs, dp)
     return state, obs_norm_apply(state, obs)

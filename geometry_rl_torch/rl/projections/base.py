@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...parallel.mesh import batch_mean
 from ..gaussian import DiagGaussian, entropy, frobenius_parts, kl_parts, wasserstein_parts
 from .kl import kl_diag_cov_projection
 
@@ -91,7 +92,7 @@ class BaseProjection:
         """(mean_diff + cov_diff).mean() * coeff against the detached projection."""
         target = DiagGaussian(proj_p.mean.detach(), proj_p.std.detach())
         mean_diff, cov_diff = self.trust_region_value(p, target)
-        return (mean_diff + cov_diff).mean() * self.trust_region_coeff
+        return batch_mean(mean_diff + cov_diff) * self.trust_region_coeff
 
     def entropy_bound(self, step, initial_entropy, like: torch.Tensor) -> torch.Tensor:
         """The schedule's entropy bound at `step`, as a tensor of `like`'s
@@ -115,12 +116,12 @@ class BaseProjection:
         combined = mean_diff + cov_diff
         entropy_diff = ent_old - ent
         return {
-            "kl": kl_val.mean(),
-            "constraint": combined.mean(),
-            "mean_constraint": mean_diff.mean(),
-            "cov_constraint": cov_diff.mean(),
-            "entropy": ent.mean(),
-            "entropy_diff": entropy_diff.mean(),
+            "kl": batch_mean(kl_val),
+            "constraint": batch_mean(combined),
+            "mean_constraint": batch_mean(mean_diff),
+            "cov_constraint": batch_mean(cov_diff),
+            "entropy": batch_mean(ent),
+            "entropy_diff": batch_mean(entropy_diff),
             "kl_max": kl_val.max(),
             "constraint_max": combined.max(),
             "mean_constraint_max": mean_diff.max(),

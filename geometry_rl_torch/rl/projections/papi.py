@@ -22,6 +22,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ...parallel.mesh import batch_global_mean
 from ..gaussian import DiagGaussian, entropy, kl_parts
 from .base import BaseProjection, entropy_inequality_projection
 
@@ -36,7 +37,7 @@ class PAPIProjection(BaseProjection):
     def _trust_region_projection(self, p: DiagGaussian, q: DiagGaussian, eps, eps_cov) -> DiagGaussian:
         eps_joint = eps + eps_cov
         maha_part, cov_part = kl_parts(p, q)
-        maha_mean, cov_mean = maha_part.mean(), cov_part.mean()
+        maha_mean, cov_mean = batch_global_mean(maha_part), batch_global_mean(cov_part)
         exceeded = maha_mean + cov_mean > eps_joint + 1e-6
 
         # covariance rotation / rescaling at the level of the expectation
@@ -55,8 +56,8 @@ class PAPIProjection(BaseProjection):
 def _expected_cov_part(new_var: torch.Tensor, old_var: torch.Tensor) -> torch.Tensor:
     """The batch mean of KL's cov part for variances new_var against old_var."""
     k = new_var.shape[-1]
-    trace_term = 0.5 * ((new_var / old_var).sum(-1) - k).mean()
-    entropy_diff = 0.5 * (torch.log(old_var).sum(-1) - torch.log(new_var).sum(-1)).mean()
+    trace_term = 0.5 * batch_global_mean((new_var / old_var).sum(-1) - k)
+    entropy_diff = 0.5 * batch_global_mean(torch.log(old_var).sum(-1) - torch.log(new_var).sum(-1))
     return trace_term + entropy_diff
 
 
@@ -124,9 +125,9 @@ def papi_project_with_intermed(p: DiagGaussian, q: DiagGaussian, intermed_mean: 
     var, old_var = p.std**2, q.std**2
 
     maha_part, cov_part = kl_parts(p, q)
-    maha_part, cov_part = maha_part.mean(), cov_part.mean()
+    maha_part, cov_part = batch_global_mean(maha_part), batch_global_mean(cov_part)
     prec = 1.0 / old_var
-    maha_inter = 0.5 * ((intermed_mean - q.mean) ** 2 * prec).sum(-1).mean()
+    maha_inter = 0.5 * batch_global_mean(((intermed_mean - q.mean) ** 2 * prec).sum(-1))
     mm = torch.minimum(maha_part, maha_inter)
 
     exceeded = maha_part + cov_part > eps_joint + 1e-6
@@ -135,8 +136,8 @@ def papi_project_with_intermed(p: DiagGaussian, q: DiagGaussian, intermed_mean: 
     cov_new = torch.where(exceeded, _expected_cov_part(new_var, old_var), cov_part)
 
     still = maha_part + cov_new > eps_joint + 1e-6
-    a = 0.5 * ((p.mean - intermed_mean) ** 2 * prec).sum(-1).mean()
-    b = 0.5 * ((p.mean - intermed_mean) * (intermed_mean - q.mean) * prec).sum(-1).mean()
+    a = 0.5 * batch_global_mean(((p.mean - intermed_mean) ** 2 * prec).sum(-1))
+    b = 0.5 * batch_global_mean(((p.mean - intermed_mean) * (intermed_mean - q.mean) * prec).sum(-1))
     c = maha_inter - torch.clamp(eps_joint - cov_new, min=0.0)
     eta_q = (-b + torch.sqrt(torch.clamp(b * b - a * c, min=1e-16))) / torch.clamp(a, min=1e-16)
     # never extrapolate past the feasible head
@@ -188,7 +189,7 @@ def papi_steps(
     idx, found = 0, False
     while idx <= hist_len:
         m, c = kl_parts(apply_fn(candidate(idx)), q)
-        if bool(m.mean() + c.mean() <= eps_joint):  # the one host read per candidate
+        if bool(batch_global_mean(m) + batch_global_mean(c) <= eps_joint):  # the one host read per candidate
             found = True
             break
         idx += 1
@@ -204,7 +205,7 @@ def papi_steps(
     working = {**intermed, k_name: params[k_name], b_name: params[b_name]}
 
     # entropy gate
-    ent = entropy(q).mean()
+    ent = batch_global_mean(entropy(q))
     entropy_bound = torch.where(ent / initial_entropy > 0.5, -torch.inf, ent - eps_joint)
     # softplus^-1(init_std - minimal_std), rounded in f32 as the reference does
     shift = torch.log(torch.expm1(torch.tensor(init_std - minimal_std, dtype=torch.float32))).item()

@@ -108,10 +108,16 @@ def build_agent(
     entropy_first: bool = False,
     dtype=torch.float32,
     device="cuda",
+    dp=None,
     **policy_kw,
 ) -> Trainer:
-    """One call -> ready Trainer."""
-    env = make_env(task, num_envs=num_envs, device=device, **(env_kwargs or {}))
+    """One call -> ready Trainer. With `dp` (`parallel.mesh.DataParallel`)
+    the trainer is this rank's part of a data-parallel run over `num_envs`
+    envs in all: its env holds the rank's row block."""
+    if dp is None:
+        env = make_env(task, num_envs=num_envs, device=device, **(env_kwargs or {}))
+    else:
+        env = make_env(task, num_envs=num_envs // dp.world, device=device, rows=dp.rows(num_envs), **(env_kwargs or {}))
     noise_kw = dict(training_noise=training_noise, training_noise_std=training_noise_std)
     policy_builder = make_graph_builder(env, dist_as_pos=True, model=model, **noise_kw)
     critic_builder = make_graph_builder(env, dist_as_pos=False, model=model, **noise_kw)
@@ -136,4 +142,4 @@ def build_agent(
         action_dim=env.cfg.action_dim,
         total_train_steps=cfg.total_iterations * cfg.ppo_epochs * n_mb,
     )
-    return Trainer(env, policy, critic, cfg, policy_builder, critic_builder, projection=projection)
+    return Trainer(env, policy, critic, cfg, policy_builder, critic_builder, projection=projection, dp=dp)

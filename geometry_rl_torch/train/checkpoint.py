@@ -9,7 +9,10 @@ Layout: `<directory>/<step>/state.pt` (plus `metrics.json` when given); the
 The TrainState parts are stored as plain lists and dicts (generators as their
 state bytes) and restored into the structure of a template TrainState from
 `trainer.init`, so the files hold only tensors and plain Python values and
-load with `weights_only=True`. A field the checkpoint lacks or holds as None
+load with `weights_only=True`. Under env-axis data parallelism a checkpoint
+holds the whole env state: every rank gathers it, rank 0 writes it, and
+each rank restores its own rows, so a checkpoint written by W processes
+restores in one and the other way round. A field the checkpoint lacks or holds as None
 (`kl_beta` of a checkpoint from another algorithm or an older version) keeps
 the template's value. `save_tree` / `restore_tree` store any such tree alone
 in the same layout: the CLI keeps PAPI's carry beside the checkpoints, in
@@ -42,9 +45,11 @@ def _plain(obj):
     return obj
 
 
-def _restore_tree(template, saved):
+def _restore_tree(template, saved, rows=None):
     """`saved` (from `_plain`) in the structure of `template`: tensors moved
-    to the template's devices, generators set in place to the saved state."""
+    to the template's devices, generators set in place to the saved state.
+    With `rows` (`parallel.mesh.Rows`), a saved tensor over all `rows.total`
+    envs where the template holds this rank's block is cut to `rows`."""
     if saved is None:
         return template
     if isinstance(template, torch.Generator):
@@ -53,10 +58,12 @@ def _restore_tree(template, saved):
     if isinstance(template, tuple):
         if len(saved) != len(template):
             raise ValueError(f"checkpoint holds {len(saved)} entries where the template has {len(template)}")
-        return type(template)(*(_restore_tree(t, s) for t, s in zip(template, saved)))
+        return type(template)(*(_restore_tree(t, s, rows) for t, s in zip(template, saved)))
     if isinstance(template, dict):
-        return {k: _restore_tree(v, saved[k]) for k, v in template.items()}
+        return {k: _restore_tree(v, saved[k], rows) for k, v in template.items()}
     if torch.is_tensor(template):
+        if rows is not None and saved.ndim >= 1 and saved.shape[0] == rows.total != template.shape[0]:
+            saved = saved[rows.index]
         if tuple(saved.shape) != tuple(template.shape) or saved.dtype != template.dtype:
             raise ValueError(f"checkpoint tensor {tuple(saved.shape)} {saved.dtype} does not fit "
                              f"{tuple(template.shape)} {template.dtype}")
@@ -96,6 +103,18 @@ def _read(directory: str, step: Optional[int]) -> dict:
 
 
 def save_checkpoint(directory: str, step: int, trainer, state, metrics: Optional[dict] = None, max_to_keep: int = 5) -> None:
+    """Write `state` and `trainer`'s params at `step`. Under data
+    parallelism every rank must call it (the env state is gathered); rank 0
+    writes."""
+    dp = getattr(trainer, "dp", None)
+    if dp is not None:
+        from ..parallel.mesh import gather_env_state
+
+        local = trainer.env.cfg.num_envs
+        state = state._replace(env_state=gather_env_state(state.env_state, dp, local),
+                               obs=gather_env_state(state.obs, dp, local))
+        if dp.rank != 0:
+            return
     payload = {
         "policy": trainer.policy.state_dict(),
         "critic": trainer.critic.state_dict(),
@@ -131,4 +150,6 @@ def restore_checkpoint(directory: str, trainer, state, step: Optional[int] = Non
         if f in fields:
             getattr(state, f).load_state_dict(payload[f])
     stored = payload["state"]
-    return state._replace(**{f: _restore_tree(getattr(state, f), stored[f]) for f in fields if f in stored})
+    rows = getattr(trainer, "rows", None) if getattr(trainer, "dp", None) is not None else None
+    return state._replace(**{f: _restore_tree(getattr(state, f), stored[f], rows if f in ("env_state", "obs") else None)
+                             for f in fields if f in stored})

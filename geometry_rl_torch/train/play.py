@@ -7,8 +7,8 @@ success rates) to `<run>/eval.json`.
 
     python -m geometry_rl_torch.train.play --run-dir logs/geometry_rl_tpu/<run> --success-threshold 0.1
 
-`--device` defaults to `cuda`; `--record` needs train/render.py, which is
-not ported yet, and raises.
+`--device` defaults to `cuda`; `--record DIR` renders a GIF of each
+evaluated checkpoint's rollout into DIR (`train/render.py`, matplotlib).
 """
 
 from __future__ import annotations
@@ -31,11 +31,9 @@ def main(argv=None):
     ap.add_argument("--num-envs", type=int, default=None, help="override eval env count")
     ap.add_argument("--success-threshold", type=float, default=None,
                     help="also report the success rate at this object->target distance")
-    ap.add_argument("--record", default=None, metavar="DIR", help="render rollout GIFs (not ported yet)")
+    ap.add_argument("--record", default=None, metavar="DIR", help="render a rollout GIF per evaluated checkpoint into DIR")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    if args.record:
-        raise NotImplementedError("--record needs train/render.py, not ported yet (ROADMAP.md Queue 1 item 13)")
 
     from ..config import load_config, trainer_from_config
     from .checkpoint import checkpoint_steps, restore_checkpoint
@@ -78,6 +76,13 @@ def main(argv=None):
                 entry["mean_final_distance"] = float(succ["mean_final_distance"])
             key = str(step) if label == "checkpoints" else f"{label}/{step}"
             results[key] = entry
+            if args.record:
+                from .render import record_rollout
+
+                os.makedirs(args.record, exist_ok=True)
+                gif = os.path.join(args.record, f"{key.replace('/', '_')}.gif")
+                record_rollout(trainer, state, gif, n_steps=args.episodes_steps, deterministic=deterministic)
+                entry["video"] = gif
             extra = f" success {entry['success_rate']:.3f}" if "success_rate" in entry else ""
             print(f"checkpoint {key}: mean episode reward {entry['reward']:.3f}{extra}", flush=True)
     if not results:

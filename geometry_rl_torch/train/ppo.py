@@ -8,6 +8,14 @@ trust-region projection, clipped PPO, or KL-penalty PPO with its adaptive
 beta), backward and Adam. `train_iteration_papi` adds PAPI's post-update
 steps. Python loops take the place of `lax.scan`; the policy and critic
 parameters live in their `nn.Module`s and the Adam states in the TrainState.
+
+With `dp` (`parallel.mesh.DataParallel`) the trainer is one process of an
+env-axis data-parallel run: its env holds this rank's row block of the
+global batch, and it computes what one process computes at the global
+`num_envs`. Random draws are made at the global width; the normaliser's
+sums, the gradients, the metrics and the losses' minibatch reductions are
+totalled over the ranks; every rank draws the same permutation of the
+global batch and trains on the samples of its own envs.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 
 from ..models.calibration import calibrate
 from ..models.common import init_params
+from ..parallel.mesh import DataParallel, RowGenerator, Rows, global_batch, replicate, shard_train_state
 from ..rl import gaussian as G
 from ..rl.gae import gae
 from ..rl.losses import LossInputs, adapt_kl_beta, kl_pen_ppo_loss, ppo_clip_loss, trpl_loss
@@ -112,8 +121,11 @@ class Trainer:
     NOISE_SEED = 0x6E015E  # the training noise's base seed
 
     def __init__(self, env, policy, critic, cfg: TrainConfig, policy_builder, critic_builder,
-                 projection: Optional[BaseProjection] = None):
+                 projection: Optional[BaseProjection] = None, dp: Optional[DataParallel] = None):
         self.env = env
+        self.dp = dp
+        self.rows: Optional[Rows] = env.rows  # this rank's envs of the global batch (None: all of them)
+        self.num_envs = env.cfg.num_envs if dp is None else env.rows.total  # the global batch's envs
         self.policy = policy
         self.critic = critic
         self.cfg = cfg
@@ -122,7 +134,7 @@ class Trainer:
         self.projection = projection
         self.device = env.device
 
-        n_samples = cfg.steps_per_batch * env.cfg.num_envs
+        n_samples = cfg.steps_per_batch * self.num_envs
         self.num_minibatches = max(1, n_samples // cfg.mini_batch_size)
         self.mini_batch_size = min(cfg.mini_batch_size, n_samples)
         self.total_network_updates = cfg.total_iterations * cfg.ppo_epochs * self.num_minibatches
@@ -150,12 +162,33 @@ class Trainer:
         init_params(self.critic, g_critic)
         calibrate(self.critic, g_c, f_c)
         return TrainState(
-            actor_opt=torch.optim.Adam(self.policy.parameters(), lr=self.cfg.lr, eps=1e-5),
-            critic_opt=torch.optim.Adam(self.critic.parameters(), lr=self.cfg.lr, eps=1e-5),
+            *self._optimizers(),
             norm=norm, env_state=env_state, obs=obs, generator=g_rest, num_updates=0,
             initial_entropy=initial_entropy,
             kl_beta=torch.full((), self.cfg.kl_beta, device=self.device) if self.cfg.algo == "kl_ppo" else None,
         )
+
+    def _optimizers(self) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
+        return (torch.optim.Adam(self.policy.parameters(), lr=self.cfg.lr, eps=1e-5),
+                torch.optim.Adam(self.critic.parameters(), lr=self.cfg.lr, eps=1e-5))
+
+    def init_from(self, full: "Trainer", generator: torch.Generator) -> TrainState:
+        """The data-parallel init: `full` (this trainer's twin at the global
+        width, in one process) builds the whole initial state from
+        `generator` as one process would, calibrating on every env; this rank
+        keeps its rows of the env state and observation, takes the params
+        (rank 0's, so that the ranks hold the same bits) and makes its own
+        Adam states."""
+        state = full.init(generator)
+        for mine, theirs in ((self.policy, full.policy), (self.critic, full.critic)):
+            mine.load_state_dict(theirs.state_dict())
+            replicate(mine, self.dp)
+        state = shard_train_state(state, self.rows, self.num_envs)
+        return state._replace(**dict(zip(("actor_opt", "critic_opt"), self._optimizers())))
+
+    def _total(self, *tensors: torch.Tensor) -> List[torch.Tensor]:
+        """Each tensor summed over the ranks (as it is in one process)."""
+        return list(tensors) if self.dp is None else self.dp.all_reduce(list(tensors))
 
     # --------------------------------------------------------------- forward
 
@@ -179,9 +212,9 @@ class Trainer:
         ep_cnt = torch.zeros((), dtype=torch.int64, device=self.device)
         steps = []
         for _ in range(self.cfg.steps_per_batch):
-            norm, tobs = obs_norm_step(norm, obs, update=True)
+            norm, tobs = obs_norm_step(norm, obs, update=True, dp=self.dp)
             dist = self._policy_dist(tobs)
-            action = G.sample(gen, dist)
+            action = G.sample(gen, dist, rows=self.rows)
             log_prob = G.log_prob(dist, action)
             value = self._value(tobs)
 
@@ -199,6 +232,7 @@ class Trainer:
             **{f: torch.stack([getattr(s, f) for s in steps]) for f in Batch._fields if f != "tobs"},
         )
         new_state = state._replace(env_state=env_state, obs=obs, norm=norm)
+        ep_sum, ep_cnt = self._total(ep_sum, ep_cnt)
         stats = {
             "train/reward": torch.where(ep_cnt > 0, ep_sum / torch.clamp(ep_cnt, min=1), torch.nan),
             "train/episodes": ep_cnt.float(),
@@ -218,6 +252,8 @@ class Trainer:
         if self.policy_builder.training_noise or self.critic_builder.training_noise:
             base = torch.Generator(device=self.device).manual_seed(self.NOISE_SEED)
             nk_a, nk_c = split_generator(fold_in(base, num_updates), 2)
+            if self.dp is not None:  # drawn over the global minibatch; this rank's samples kept
+                nk_a, nk_c = RowGenerator(nk_a, mb["rows"]), RowGenerator(nk_c, mb["rows"])
         dist = self._policy_dist(mb["tobs"], mb["env_ids"], nk_a)
         value = self._value(mb["tobs"], mb["env_ids"], nk_c)
         inputs = LossInputs(
@@ -287,15 +323,66 @@ class Trainer:
         metrics and the KL-penalty beta for the next minibatch."""
         state.actor_opt.zero_grad(set_to_none=True)
         state.critic_opt.zero_grad(set_to_none=True)
-        loss, (metrics, kl_beta) = self._minibatch_loss(mb, num_updates, state.initial_entropy, kl_beta)
-        loss.backward()
+        with global_batch(self.dp, self.mini_batch_size):
+            loss, (metrics, kl_beta) = self._minibatch_loss(mb, num_updates, state.initial_entropy, kl_beta)
+            loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.dp is not None:
+            # each rank's loss is its share of the minibatch mean: the summed
+            # gradients and metrics are the global minibatch's
+            grads = [p.grad for m in (self.policy, self.critic) for p in m.parameters() if p.grad is not None]
+            for g, total in zip(grads, self.dp.all_reduce(grads)):
+                g.copy_(total)
+            metrics = self._reduce_metrics(metrics)
         # pre-clip gradient magnitude; `_max` aggregates as a max below
         gn = global_norm([p.grad for p in self.policy.parameters() if p.grad is not None])
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm_actor"] = metrics["grad_norm_actor_max"] = gn
         self._optimizer_step(state.actor_opt, num_updates, lr_scale)
         self._optimizer_step(state.critic_opt, num_updates, lr_scale)
         return metrics, kl_beta
+
+    # metrics the losses compute from replicated or already global values
+    REPLICATED_METRICS = ("ESS", "kl_penalty_beta")
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-rank minibatch metrics -> the global minibatch's: `_max` keys
+        as maxima, `_min` keys as minima, the shares of means summed."""
+        kinds = {"max": [], "min": [], "sum": []}
+        for k in metrics:
+            if k not in self.REPLICATED_METRICS:
+                kinds["max" if k.endswith("_max") else "min" if k.endswith("_min") else "sum"].append(k)
+        out = dict(metrics)
+        for op, keys in kinds.items():
+            out.update(zip(keys, self.dp.all_reduce([metrics[k] for k in keys], op)))
+        return out
+
+    def _local_minibatches(self, perm: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """This rank's share of each minibatch of a global permutation: global
+        sample i is env i % B at step i // B. Per minibatch, the indices of
+        the rank's samples into its flattened [T * B_local] data and their
+        positions in the global minibatch, both in the minibatch's order."""
+        B, rows = self.num_envs, self.rows
+        lo, b_local = rows.index.start, rows.index.stop - rows.index.start
+        perm = perm.cpu()  # one read per epoch
+        env = perm % B
+        counts = torch.stack([((env >= r * b_local) & (env < (r + 1) * b_local)).sum(1) for r in range(self.dp.world)])
+        if int(counts.min()) == 0:
+            raise ValueError(f"a minibatch of {perm.shape[1]} samples left a rank without samples; "
+                             f"use larger minibatches or fewer processes")
+        out = []
+        for row, e in zip(perm, env):
+            pos = ((e >= lo) & (e < lo + b_local)).nonzero().squeeze(1)
+            idx = (row[pos] // B) * b_local + (e[pos] - lo)
+            out.append((idx.to(self.device), pos.to(self.device)))
+        return out
+
+    def _global_var(self, x: torch.Tensor) -> torch.Tensor:
+        """`x.var(correction=0)` over the samples of every rank."""
+        if self.dp is None:
+            return x.var(correction=0)
+        n = x.numel() * self.dp.world
+        mean = self._total(x.sum())[0] / n
+        return self._total(((x - mean) ** 2).sum())[0] / n
 
     def _update_data(self, state: TrainState, batch: Batch) -> Dict:
         """GAE (bootstrapped with the current critic on the post-rollout
@@ -330,12 +417,16 @@ class Trainer:
         (PAPI's LR annealing) multiplies every Adam update."""
         cfg = self.cfg
         data = self._update_data(state, batch)
-        n = data["action"].shape[0]
+        n = cfg.steps_per_batch * self.num_envs
         num_updates, kl_beta = state.num_updates, state.kl_beta
         stacked: Dict[str, List[torch.Tensor]] = {}
         for _ in range(cfg.ppo_epochs):
-            for idx in self._permutation(state.generator, n):
+            perm = self._permutation(state.generator, n)
+            shares = [(idx, None) for idx in perm] if self.dp is None else self._local_minibatches(perm)
+            for idx, pos in shares:
                 mb = {k: ({g: x[idx] for g, x in v.items()} if k == "tobs" else v[idx]) for k, v in data.items()}
+                if pos is not None:
+                    mb["rows"] = Rows(pos, self.mini_batch_size)
                 metrics, kl_beta = self._minibatch_step(state, mb, num_updates, kl_beta, lr_scale)
                 for k, v in metrics.items():
                     stacked.setdefault(k, []).append(v)
@@ -349,7 +440,7 @@ class Trainer:
         # which aggregate as true maxes
         metrics = {k: (torch.stack(v).max() if k.endswith("_max") else torch.stack(v).mean()) for k, v in stacked.items()}
         vt, v = data["value_target"], data["value"]
-        metrics["train/explained_variance"] = 1.0 - (vt - v).var(correction=0) / torch.clamp(vt.var(correction=0), min=1e-8)
+        metrics["train/explained_variance"] = 1.0 - self._global_var(vt - v) / torch.clamp(self._global_var(vt), min=1e-8)
         return state._replace(num_updates=num_updates, kl_beta=kl_beta), metrics
 
     # -------------------------------------------------------------- full step
@@ -395,13 +486,14 @@ class Trainer:
             graph, feats = self.policy_builder.build({k: flat(v) for k, v in batch.tobs.items()},
                                                      torch.arange(B, device=self.device).repeat(T))
         params = {k: v.detach() for k, v in self.policy.named_parameters()}
-        new_params, papi_state, anneal, n_backtracks = papi_steps(
+        with global_batch(self.dp, T * self.num_envs):  # the expected divergences over every rank's samples
+            new_params, papi_state, anneal, n_backtracks = papi_steps(
             lambda p: torch.func.functional_call(self.policy, p, (graph, feats)),
-            params, papi_state, G.DiagGaussian(flat(batch.mean), flat(batch.std)),
-            mean_bound=self.projection.mean_bound, cov_bound=self.projection.cov_bound,
-            initial_entropy=state.initial_entropy, init_std=self.policy.init_std, minimal_std=self.policy.minimal_std,
-            n_iters=cfg.papi_iters,
-        )
+                params, papi_state, G.DiagGaussian(flat(batch.mean), flat(batch.std)),
+                mean_bound=self.projection.mean_bound, cov_bound=self.projection.cov_bound,
+                initial_entropy=state.initial_entropy, init_std=self.policy.init_std, minimal_std=self.policy.minimal_std,
+                n_iters=cfg.papi_iters,
+            )
         with torch.no_grad():
             for k, p in self.policy.named_parameters():
                 p.copy_(new_params[k])
@@ -442,7 +534,7 @@ class Trainer:
         for _ in range(n_steps):
             _, tobs = obs_norm_step(state.norm, obs, update=False)
             dist = self._policy_dist(tobs)
-            action = dist.mean if deterministic else G.sample(gen, dist)
+            action = dist.mean if deterministic else G.sample(gen, dist, rows=self.rows)
             env_state, ts = self.env.step(env_state, action)
             yield ts
             obs = ts.obs
@@ -458,6 +550,7 @@ class Trainer:
             ep_sum = ep_sum + torch.where(ts.done, cum, 0.0).sum()
             ep_cnt = ep_cnt + ts.done.sum()
             cum = torch.where(ts.done, 0.0, cum)
+        ep_sum, ep_cnt = self._total(ep_sum, ep_cnt)
         return ep_sum / torch.clamp(ep_cnt, min=1)
 
     @torch.no_grad()
@@ -471,5 +564,6 @@ class Trainer:
             succ = succ + (done_f * (d < threshold)).sum()
             dist_sum = dist_sum + (done_f * d).sum()
             ends = ends + done_f.sum()
+        succ, dist_sum, ends = self._total(succ, dist_sum, ends)
         ends = torch.clamp(ends, min=1.0)
         return {"success_rate": succ / ends, "mean_final_distance": dist_sum / ends}

@@ -1,7 +1,6 @@
-"""Geometry math: quaternions, rigid transforms, uniform sampling, S2 grids.
-
-Port of the subset of `geometry_rl_tpu/utils/math.py` the cloth and rigid
-slices use. Quaternions are (w, x, y, z); functions broadcast over leading dims.
+"""Geometry math: quaternions, rigid transforms, uniform sampling, S1 / S2
+grids (port of `geometry_rl_tpu/utils/math.py`). Quaternions are (w, x, y, z);
+functions broadcast over leading dims.
 """
 
 from __future__ import annotations
@@ -62,6 +61,17 @@ def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
 
 
+def quat_inv_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of q."""
+    return quat_apply(quat_conjugate(q), v)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Quaternion from unit axis [..., 3] and angle [...]."""
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
 def quat_from_euler_xyz(roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
     """Quaternion from XYZ (roll-pitch-yaw) Euler angles (extrinsic x-y-z)."""
     cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
@@ -78,6 +88,17 @@ def quat_from_euler_xyz(roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tens
     )
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] from quaternion [..., 4]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def quat_error_magnitude(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Rotation angle (radians, in [0, pi]) between two quaternions: the
     axis-angle magnitude of q1 ⊗ q2*, in the robust atan2 form."""
@@ -87,10 +108,37 @@ def quat_error_magnitude(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.atan2(sin_half, cos_half)
 
 
+def yaw_quat(q: torch.Tensor) -> torch.Tensor:
+    """The yaw-only quaternion of q (identity where q has no yaw part)."""
+    w, z = q[..., 0], q[..., 3]
+    norm = torch.sqrt(w * w + z * z)
+    safe = norm > 1e-9
+    w = torch.where(safe, w / torch.clamp(norm, min=1e-9), 1.0)
+    z = torch.where(safe, z / torch.clamp(norm, min=1e-9), 0.0)
+    zeros = torch.zeros_like(w)
+    return torch.stack([w, zeros, zeros, z], dim=-1)
+
+
+def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the yaw component of q only."""
+    return quat_apply(yaw_quat(q), v)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt: float) -> torch.Tensor:
+    """First-order quaternion integration under world-frame angular velocity."""
+    dq = 0.5 * quat_mul(torch.cat([torch.zeros_like(omega[..., :1]), omega], dim=-1), q)
+    return quat_normalize(q + dt * dq)
+
+
 def transform_points(points: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     """World-transform local points: R(quat) @ p + pos. points [..., N, 3];
     pos [..., 3] and quat [..., 4] broadcast over N."""
     return quat_apply(quat[..., None, :], points) + pos[..., None, :]
+
+
+def inverse_transform_points(points: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """The inverse of `transform_points`: R(quat)^T @ (p - pos)."""
+    return quat_inv_apply(quat[..., None, :], points - pos[..., None, :])
 
 
 def sample_uniform(generator: torch.Generator, lower, upper, shape: tuple, device=None) -> torch.Tensor:
@@ -111,3 +159,18 @@ def fibonacci_lattice(n: int, offset: float = 0.5, upper_hemisphere: bool = Fals
         [torch.cos(theta) * torch.sin(phi), torch.sin(theta) * torch.sin(phi), torch.cos(phi)],
         dim=-1,
     )
+
+
+def s1_grid(n: int, device=None) -> torch.Tensor:
+    """n equally spaced points on S1 -> [n, 2]."""
+    angles = torch.linspace(0.0, 2 * math.pi - (2 * math.pi / n), n, dtype=torch.float32, device=device)
+    return torch.stack([torch.cos(angles), torch.sin(angles)], dim=1)
+
+
+def orientation_grid(dim: int, n: int, upper_hemisphere: bool = False, device=None) -> torch.Tensor:
+    """The PONITA grid: S1 (dim=2) or S2 (dim=3)."""
+    if dim == 2:
+        return s1_grid(n, device)
+    if dim == 3:
+        return fibonacci_lattice(n, upper_hemisphere=upper_hemisphere, device=device)
+    raise ValueError("Only S1 (dim=2) and S2 (dim=3) are supported.")

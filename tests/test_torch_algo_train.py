@@ -15,6 +15,7 @@ KL-penalty beta moves by exact factors of 2: it must be equal.
 """
 
 import dataclasses
+import functools
 import json
 
 import jax
@@ -44,7 +45,10 @@ CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def jax_agent():
+    """The JAX agent and its collected batch, shared by every case (each
+    case's update reads them and leaves them as they are)."""
     jtr, js0 = reference_agent("rigid_pushing", "hepi", frozen(**SMALL), frozen(**CFG), seed=4)
     js1, jbatch, _ = jax.jit(jtr._collect)(js0)
     return jtr, js1, jbatch

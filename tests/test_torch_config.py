@@ -135,3 +135,22 @@ def test_trainer_from_config_refuses_an_unknown_beta_interval():
         with pytest.raises(ValueError, match="kl_beta_interval"):
             package.trainer_from_config(package.load_config("rigid_insertion_multi_hepi_trpl", overrides),
                                         **({"device": "cpu"} if package is config else {}))
+
+
+@pytest.mark.parametrize("entry", ["OnPolicyRunner", "runner.main", "bc_cli.main"])
+def test_new_entry_points_default_to_the_card(entry, monkeypatch):
+    """The runner, its command line and the behaviour-cloning command line run
+    on the card unless told otherwise, and raise where there is none;
+    rendering runs on its trainer's device."""
+    from geometry_rl_torch.train import bc_cli, runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "OnPolicyRunner":
+        assert inspect.signature(runner.OnPolicyRunner).parameters["device"].default == "cuda"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            runner.OnPolicyRunner("rigid_pushing", num_envs=2)
+        return
+    main, argv = {"runner.main": (runner.main, ["--num-envs", "2"]),
+                  "bc_cli.main": (bc_cli.main, ["--config", "cloth_hanging_multi_hepi_trpl"])}[entry]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(argv)

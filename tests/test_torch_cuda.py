@@ -541,3 +541,39 @@ def test_new_algorithms_train_on_the_card(cuda_device, config, overrides):
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
     if trainer.cfg.algo == "kl_ppo":
         assert state.kl_beta.device.type == "cuda" and state.kl_beta.item() in (0.5, 1.0, 2.0)
+
+
+@pytest.mark.cuda
+def test_bc_epoch_and_render_frames_do_not_synchronise(cuda_device):
+    """A behaviour-cloning epoch (gather, HEPi forward, MSE, backward, Adam
+    over every minibatch) and `collect_frames`' rollout (K2's port in every
+    step, snapshots kept on the card) under CUDA's sync debug mode set to
+    error; only the host reads that end them (the epoch's loss, the frames'
+    copy) synchronise."""
+    from geometry_rl_torch.train.bc import bc_epoch, generate_data
+    from geometry_rl_torch.train.render import collect_frames, frame_tensors
+
+    cfg = load_config("cloth_hanging_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 8, "kwargs": {"warmup_steps": 0, "episode_length": 3}},
+        "algorithm": {"latent_dim": 16, "num_ori": 4},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    data = generate_data(trainer, state, n_steps=4)
+    tobs = {k[4:]: torch.tensor(v, device=cuda_device) for k, v in data.items() if k.startswith("obs_")}
+    actions, ids = torch.tensor(data["action"], device=cuda_device), torch.tensor(data["env_ids"], device=cuda_device).long()
+    perm = torch.randperm(32, device=cuda_device).reshape(4, 8)
+    opt = torch.optim.Adam(trainer.policy.parameters(), lr=3e-4, eps=1e-8)
+    bc_epoch(trainer, opt, tobs, actions, ids, perm)  # warm-up: the optimiser's state is made
+    frame_tensors(trainer, state, 2)
+    torch.cuda.synchronize()
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = bc_epoch(trainer, opt, tobs, actions, ids, perm)
+        stacked, done = frame_tensors(trainer, state, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss) and done.shape == (5,) and stacked["particles"].shape == (5, 225, 3)
+    assert LAUNCHES == {"cloth_solve": 2 * 5, "cloth_solve_env": 0}
+    assert len(collect_frames(trainer, state, 5)) == 2  # env 0 ends its episode at the third step

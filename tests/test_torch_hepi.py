@@ -106,7 +106,8 @@ def test_calibrate_matches(agents):
     jtobs = {k: jnp.asarray(v) for k, v in tobs.items()}
     g, f = jtr.policy_builder.build(jtobs)
     raw = jax.jit(lambda key: jtr.policy.init(key, g, f))(jax.random.PRNGKey(3))
-    want = params_from_flax(np_tree(jax_calibrate(jtr.policy, raw, g, f)))
+    # jitted: op by op the CPU compiles every primitive apart
+    want = params_from_flax(np_tree(jax.jit(lambda p: jax_calibrate(jtr.policy, p, g, f))(raw)))
     policy = copy.deepcopy(ttr.policy)
     policy.load_state_dict(params_from_flax(np_tree(raw)))
     tg, tf = ttr.policy_builder.build(to_torch(tobs))

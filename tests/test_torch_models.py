@@ -278,7 +278,8 @@ def test_calibrate_matches_reference(model):
     g, f = jtr.policy_builder.build(jt)
     raw = jax.jit(lambda key: jtr.policy.init(key, g, f))(jax.random.PRNGKey(7))
     raw = {"params": raw["params"]}
-    ref = params_from_flax(np_tree(jax_calibrate(jtr.policy, raw, g, f)))
+    # jitted: op by op the CPU compiles every primitive apart
+    ref = params_from_flax(np_tree(jax.jit(lambda p: jax_calibrate(jtr.policy, p, g, f))(raw)))
     before = params_from_flax(np_tree(raw))
     ttr.policy.load_state_dict(before)
     tm.calibrate(ttr.policy, *ttr.policy_builder.build(tt))

@@ -15,11 +15,14 @@ Tolerances:
   taken, aggregated metrics within 1e-4 relative and 1e-5 absolute).
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
 import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
+from test_torch_common import assert_frames_close, render_frames
 
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_step as jax_obs_norm_step, obs_norm_update
 from geometry_rl_tpu.train import TrainConfig as JaxTrainConfig
@@ -45,21 +48,28 @@ def close(got, ref):
     return np.abs(np.asarray(got) - ref).max() <= RTOL * max(1.0, np.abs(ref).max())
 
 
-@pytest.fixture(scope="module")
-def rollouts():
+@functools.lru_cache(maxsize=None)
+def agents():
+    """(JAX trainer, its state with the normaliser folded once, jitted policy
+    and env step, the port's trainer with the same params, its normaliser)."""
     jtr = jax_build_agent("rigid_insertion", "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4),
                           env_kwargs=dict(warmup_steps=2), **SMALL)
     js = jax.jit(jtr.init)(jax.random.PRNGKey(1))
-    norm = obs_norm_update(js.norm, js.obs)
-
+    js = js._replace(norm=obs_norm_update(js.norm, js.obs))
     ttr = build_agent("rigid_insertion", "hepi", env_kwargs=dict(warmup_steps=2), device="cpu", **SMALL)
     ttr.policy.load_state_dict(params_from_flax(np_tree(js.actor_params)))
-    t_norm = obs_norm_from_jax(np_tree(norm))
+    j_policy, j_step = jax.jit(jtr._policy_dist), jax.jit(jtr.env.step)  # jitted: far faster than op by op on the CPU
+    return jtr, js, j_policy, j_step, ttr, obs_norm_from_jax(np_tree(js.norm))
+
+
+@pytest.fixture(scope="module")
+def rollouts():
+    jtr, js, j_policy, j_step, ttr, t_norm = agents()
+    norm = js.norm
     t_env = rigid_state_from_jax(np_tree(js.env_state), torch.Generator().manual_seed(0))
     t_obs = ttr.env.observe(t_env)
 
     j_env, j_obs = js.env_state, js.obs
-    j_policy, j_step = jax.jit(jtr._policy_dist), jax.jit(jtr.env.step)  # jitted: far faster than op by op on the CPU
     out = []
     with torch.no_grad():
         for _ in range(STEPS):
@@ -87,6 +97,14 @@ def test_rollout_step_matches_reference(rollouts, step, quantity):
     if quantity == "action":
         assert np.abs(ref).max() > 1e-2  # a non-trivial policy output
     assert close(got, ref), (quantity, np.abs(got - ref).max(), np.abs(ref).max())
+
+
+def test_render_frames_match_reference():
+    """`collect_frames` against the JAX `_collect_frames` (bodies, target,
+    object mesh, task distance) from the same state, stopping before env 0's
+    episode end, within 1e-5 of scale (measured: bodies equal, mesh 9e-8)."""
+    jtr, js, j_policy, j_step, ttr, t_norm = agents()
+    assert_frames_close(*render_frames(jtr, js, j_policy, j_step, ttr, t_norm, rigid_state_from_jax), 1e-5)
 
 
 # ---------------------------------------------------------------- the update

@@ -16,6 +16,7 @@ Tolerances:
   taken, aggregated metrics within 1e-4 relative and 1e-5 absolute).
 """
 
+import functools
 import json
 import os
 
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 import test_torch_common  # noqa: F401  (pins torch to one thread per test worker)
+from test_torch_common import assert_frames_close, render_frames
 
 from geometry_rl_tpu.rl.obs_pipeline import obs_norm_step as jax_obs_norm_step, obs_norm_update
 from geometry_rl_tpu.train import TrainConfig as JaxTrainConfig
@@ -52,21 +54,28 @@ def close(got, ref, rtol=RTOL):
     return np.abs(np.asarray(got) - ref).max() <= rtol * max(1.0, np.abs(ref).max())
 
 
+@functools.lru_cache(maxsize=None)
+def agents(task):
+    """(JAX trainer, its state with the normaliser folded once, jitted policy
+    and env step, the port's trainer with the same params, its normaliser)."""
+    jtr = jax_build_agent(task, "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4), env_kwargs=ENV_KW, **SMALL)
+    js = jax.jit(jtr.init)(jax.random.PRNGKey(1))
+    js = js._replace(norm=obs_norm_update(js.norm, js.obs))
+    ttr = build_agent(task, "hepi", env_kwargs=ENV_KW, device="cpu", **SMALL)
+    ttr.policy.load_state_dict(params_from_flax(np_tree(js.actor_params)))
+    j_policy, j_step = jax.jit(jtr._policy_dist), jax.jit(jtr.env.step)  # jitted: far faster than op by op on the CPU
+    return jtr, js, j_policy, j_step, ttr, obs_norm_from_jax(np_tree(js.norm))
+
+
 @pytest.fixture(scope="module", params=TASKS)
 def rollouts(request):
     task = request.param
-    jtr = jax_build_agent(task, "hepi", train_cfg=JaxTrainConfig(steps_per_batch=2, mini_batch_size=4), env_kwargs=ENV_KW, **SMALL)
-    js = jax.jit(jtr.init)(jax.random.PRNGKey(1))
-    norm = obs_norm_update(js.norm, js.obs)
-
-    ttr = build_agent(task, "hepi", env_kwargs=ENV_KW, device="cpu", **SMALL)
-    ttr.policy.load_state_dict(params_from_flax(np_tree(js.actor_params)))
-    t_norm = obs_norm_from_jax(np_tree(norm))
+    jtr, js, j_policy, j_step, ttr, t_norm = agents(task)
+    norm = js.norm
     t_env = rope_state_from_jax(np_tree(js.env_state), torch.Generator().manual_seed(0))
     t_obs = ttr.env.observe(t_env)
 
     j_env, j_obs = js.env_state, js.obs
-    j_policy, j_step = jax.jit(jtr._policy_dist), jax.jit(jtr.env.step)  # jitted: far faster than op by op on the CPU
     out = []
     with torch.no_grad():
         for _ in range(STEPS):
@@ -104,6 +113,14 @@ def test_rollout_step_matches_reference(rollouts, step, quantity):
 CFG = dict(steps_per_batch=3, mini_batch_size=6, ppo_epochs=2, total_iterations=10)
 TINY = dict(num_envs=4, latent_dim=8, num_ori=4)
 TINY_ENV = dict(num_links=10, rope_length=1.25, warmup_steps=0)
+
+
+def test_render_frames_match_reference():
+    """`collect_frames` against the JAX `_collect_frames` on rope_closing
+    (grippers, links, the pole, task distance) from the same state, stopping
+    before env 0's episode end, within 1e-5 of scale."""
+    jtr, js, j_policy, j_step, ttr, t_norm = agents("rope_closing")
+    assert_frames_close(*render_frames(jtr, js, j_policy, j_step, ttr, t_norm, rope_state_from_jax), 1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -345,25 +345,131 @@ def test_train_cli_logs_checkpoints_and_resumes_exactly(ref, tmp_path):
 
 
 def test_clis_refuse_what_is_not_ported(tmp_path):
-    """The CLIs raise on what is not ported yet; PAPI steps on the HEPi
-    policy raise the reference's error (no Dense `mean` head, a contextual
-    std), and clipped PPO trains."""
+    """What the CLIs once refused now runs: `parallel.data_parallel=true` on
+    one device trains in one process (the JAX CLI's rule), `env.video` records
+    a GIF of the current policy, and `play --record` writes one per
+    checkpoint. PAPI steps on the HEPi policy raise the reference's error (no
+    Dense `mean` head, a contextual std), and clipped PPO trains."""
     from geometry_rl_torch.train import cli, play
 
     base = ["--config", "cloth_hanging_multi_hepi_trpl", "--device", "cpu", "--override", *TINY,
             f"logger.log_dir={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        cli.main(base + ["parallel.data_parallel=true"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        cli.main(base + ["env.video=true"])
+    run = cli.main(base + ["parallel.data_parallel=true", "collector.total_frames=8", "env.video=true",
+                           "env.video_interval=1", "env.video_length=2"])
+    assert os.listdir(os.path.join(run, "videos")) == ["iter_00000.gif"]
+    # the JAX CLI's rules for splitting the env axis over n devices
+    assert cli.data_parallel_width({"env": {"num_envs": 4}}, 2, False) == 2
+    assert cli.data_parallel_width({"env": {"num_envs": 4}, "parallel": {"data_parallel": False}}, 2, False) == 1
+    assert cli.data_parallel_width({"env": {"num_envs": 3}}, 2, False) == 1  # "auto" and indivisible: one device
+    with pytest.raises(ValueError, match="does not divide"):
+        cli.data_parallel_width({"env": {"num_envs": 3}, "parallel": {"data_parallel": True}}, 2, False)
+    with pytest.raises(ValueError, match="multi-process launch"):
+        cli.data_parallel_width({"env": {"num_envs": 3}}, 2, True)
+    assert cli.data_parallel_width({"env": {"num_envs": 3}}, 1, True) == 1  # a launch of one process
     with pytest.raises(ValueError, match="non-contextual std"):
         cli.main(base + ["algorithm.objective.papi_steps=true"])
     run = cli.main(base + ["algo=ppo", "collector.total_frames=8"])
     rows = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
     assert len(rows) == 1 and "clip_fraction" in rows[0] and "loss_trust_region" not in rows[0]
     assert all(np.isfinite(v) for v in rows[0].values())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        play.main(["--run-dir", str(tmp_path), "--record", str(tmp_path / "v"), "--device", "cpu"])
+    results = play.main(["--run-dir", run, "--checkpoint", "checkpoints", "--episodes-steps", "2",
+                         "--record", str(tmp_path / "v"), "--device", "cpu"])
+    assert results["0"]["video"] == str(tmp_path / "v" / "0.gif") and os.path.getsize(results["0"]["video"]) > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["--config", "cloth_hanging_multi_hepi_trpl"])
+
+
+# ------------------------------------------------- behaviour cloning, runner
+
+BC_TOL = 4e-6  # params after 4 Adam steps (eps 1e-8), each moving an entry by at most ~lr = 3e-4
+
+
+def jax_dataset(jbatch):
+    """The JAX batch as a BC dataset in `generate_data`'s layout."""
+    T, B = np.asarray(jbatch.action).shape[:2]
+    data = {f"obs_{k}": np.asarray(v).reshape((T * B,) + v.shape[2:]) for k, v in jbatch.tobs.items()}
+    data["action"] = np.asarray(jbatch.action).reshape(T * B, -1)
+    data["env_ids"] = np.tile(np.arange(B, dtype=np.int32), T)
+    return data
+
+
+def test_behavior_cloning_matches_reference(ref):
+    """Two epochs of `behavior_cloning` (minibatches of 4 from numpy's
+    permutation of the 8 recorded samples, Adam with optax's default eps) in
+    both packages from the same params and dataset."""
+    from geometry_rl_tpu.train.bc import behavior_cloning as jax_bc
+    from geometry_rl_torch.train.bc import behavior_cloning
+
+    jtr, js, jbatch, ttr = ref
+    data = jax_dataset(jbatch)
+    js_new, jhist = jax_bc(jtr, js, data, epochs=2, batch_size=4, lr=3e-4, eval_steps=0, seed=3)
+    state = port_state(jtr, js, ttr)
+    state, hist = behavior_cloning(ttr, state, data, epochs=2, batch_size=4, lr=3e-4, eval_steps=0, seed=3)
+    assert [h["epoch"] for h in hist] == [0, 1] and set(hist[0]) == set(jhist[0]) == {"epoch", "bc_loss"}
+    for h, jh in zip(hist, jhist):
+        np.testing.assert_allclose(h["bc_loss"], jh["bc_loss"], rtol=1e-5)
+    assert hist[1]["bc_loss"] < hist[0]["bc_loss"]
+    assert_params_close(ttr.policy, js_new.actor_params, BC_TOL, "actor")
+
+
+def test_bc_cli_clones_a_jax_dataset_and_writes_the_jax_layout(ref, tmp_path):
+    """A dataset recorded by the JAX package's `generate_data` clones through
+    the port's `bc_cli`; the port's own recording has the JAX keys, dtypes
+    and shapes; `play` evaluates the clone."""
+    from geometry_rl_tpu.train.bc import generate_data as jax_generate_data
+    from geometry_rl_torch.train import bc_cli, play
+
+    jtr, js, _, _ = ref
+    jax_path = str(tmp_path / "jax" / "data.npz")
+    jdata = jax_generate_data(jtr, js, n_steps=2, path=jax_path)
+    common = ["--config", "cloth_hanging_multi_hepi_trpl", "--device", "cpu", "--epochs", "1", "--batch-size", "2",
+              "--eval-every", "1", "--eval-steps", "3", "--override", *TINY]
+    hist = bc_cli.main(common + ["--data", jax_path, "--out-dir", str(tmp_path / "a")])
+    assert np.isfinite(hist[0]["bc_loss"]) and np.isfinite(hist[0]["eval_reward"])
+    assert not os.path.exists(tmp_path / "a" / "data.npz")
+
+    out = tmp_path / "b"
+    hist = bc_cli.main(common + ["--record-steps", "2", "--success-threshold", "0.1", "--fresh-actor", "--out-dir", str(out)])
+    assert 0.0 <= hist[-1]["final_eval"]["success_rate"] <= 1.0 and hist[-1]["final_eval"]["transitions"] == 4
+    port = np.load(out / "data.npz")
+    assert sorted(port.files) == sorted(jdata)
+    for k, v in jdata.items():
+        assert port[k].shape == v.shape and port[k].dtype == v.dtype, k
+    np.testing.assert_array_equal(port["env_ids"], np.tile(np.arange(2, dtype=np.int32), 2))
+    assert json.load(open(out / "bc_history.json")) == hist
+    results = play.main(["--run-dir", str(out), "--checkpoint", "cloned", "--episodes-steps", "3", "--device", "cpu"])
+    assert list(results) == ["cloned/1"] and np.isfinite(results["cloned/1"]["reward"])
+
+
+def test_runner_matches_reference_and_round_trips(ref, tmp_path):
+    """`OnPolicyRunner.get_inference_policy` against the JAX runner's on the
+    same params, normaliser and observation (1e-5 relative to the mean's
+    scale, tests/test_torch_hepi.py's forward tolerance); `learn(2)` logs two
+    rows; `save` then `load` restores bit-exactly."""
+    from geometry_rl_tpu.train.runner import OnPolicyRunner as JaxRunner
+    from geometry_rl_torch.train.runner import OnPolicyRunner
+
+    jtr, js, _, _ = ref
+    jrunner = object.__new__(JaxRunner)  # the runner over the fixture's agent
+    jrunner.trainer, jrunner.state = jtr, js
+    runner = OnPolicyRunner("cloth_hanging", algo="trpl", num_envs=2, steps_per_env=4, log_dir=str(tmp_path), device="cpu",
+                            env_kwargs=dict(warmup_steps=0), **{k: v for k, v in SMALL.items() if k != "num_envs"})
+    runner.state = port_state(jtr, js, runner.trainer)
+    runner.trainer.policy.load_state_dict(params_from_flax(np_tree(js.actor_params)))
+    obs = {k: torch.as_tensor(np.array(v)) for k, v in js.obs.items()}
+    got = runner.get_inference_policy()(obs).numpy()
+    want = np.asarray(jrunner.get_inference_policy()(js.obs))
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), np.abs(got - want).max()
+
+    runner.learn(2)
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [1, 2] and all(np.isfinite(r["loss_critic"]) for r in rows)
+    runner.save()
+    saved = {k: v.clone() for k, v in runner.trainer.policy.state_dict().items()}
+    before = runner.get_inference_policy()(obs)
+    runner.learn(1)
+    runner.load(str(tmp_path / "checkpoints"))
+    assert all(torch.equal(v, saved[k]) for k, v in runner.trainer.policy.state_dict().items())
+    assert runner.state.num_updates == 2 * runner.trainer.num_minibatches * runner.trainer.cfg.ppo_epochs
+    assert torch.equal(runner.get_inference_policy()(obs), before)

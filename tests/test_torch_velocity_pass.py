@@ -321,14 +321,15 @@ def test_rigid_pushing_with_material_matches_reference():
     kw = dict(num_envs=4, warmup_steps=2, restitution=0.3, dynamic_friction_scale=1.0)
     je, te = jax_make_env("rigid_pushing", **kw), make_env("rigid_pushing", device="cpu", **kw)
     plain = make_env("rigid_pushing", device="cpu", num_envs=4, warmup_steps=2)
-    js = je.reset(jax.random.PRNGKey(3))
+    js = jax.jit(je.reset)(jax.random.PRNGKey(3))
+    j_step = jax.jit(je.step)  # jitted: op by op the CPU compiles every primitive apart
     action = np.tile(np.float32([1.0, 0.2, 0.0]), (4, 1))
     differs = 0.0
     for _ in range(6):
         ts = rigid_state_from_jax(jax.tree_util.tree_map(np.asarray, js), torch.Generator().manual_seed(0))
         got, _ = te.step(ts, torch.as_tensor(action))
         without, _ = plain.step(ts, torch.as_tensor(action))
-        js, _ = je.step(js, jnp.asarray(action))
+        js, _ = j_step(js, jnp.asarray(action))
         np.testing.assert_allclose(got.scene.bodies.pos.numpy(), np.asarray(js.scene.bodies.pos), atol=1e-4, rtol=0)
         np.testing.assert_allclose(got.scene.bodies.quat.numpy(), np.asarray(js.scene.bodies.quat), atol=1e-4, rtol=0)
         np.testing.assert_allclose(got.scene.bodies.lin_vel.numpy(), np.asarray(js.scene.bodies.lin_vel), atol=1e-4 / DT, rtol=0)
