@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering and data parallelism on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering, data parallelism and the evaluation tools on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-31 (or those listed) only, no result lines
+    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-34 (or those listed) only, no result lines
     python3 chip_smoke.py --keep-going   # report every failed gate, then exit non-zero
 
 Phases, each printing a line; any failure raises and exits non-zero:
@@ -137,6 +137,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
      params printed; K2's port 2 x (10 + 100) launches in every process, the
      2-rank checkpoint restored in one process; then a one-rank NCCL launch
      through the CLI.
+ 32. `tools.smoke_env` on all 7 tasks (4 envs, 3 random steps): the last
+     observations finite and on the card; K2's port exactly 2 x (10 + 3)
+     launches on cloth_hanging, neither kernel on the other tasks.
+ 33. `tools.eval_breakdown --episodes 1` on phase 10's run (1000 envs, 8 peg
+     shapes): every shape reported, the per-shape episodes sum to the
+     overall count, every value finite, no cloth kernel launched.
+ 34. `tools.learn_check` on cloth_hanging at the config's width (100 envs,
+     minibatches of 200, 2 iterations): two finite rows with the JAX
+     script's keys and a SUMMARY line; K2's port exactly 2 x 2 x 100
+     launches (the tool's env has no warm-up steps), K1's none.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -609,9 +619,9 @@ def parity_phase(card: str, config: str, positions: dict, model: str = "") -> No
         fail(f"the {config} slice on the card disagrees with the CPU: {worst}")
 
 
-def play_phase(card: str, run_dir: str, steps: int = 100) -> None:
+def play_phase(card: str, run_dir: str, steps: int = 100, keep: bool = False) -> None:
     """`train.play` on a run: `steps` steps, success threshold 0.1; the run
-    dir is removed after."""
+    dir is removed after unless `keep`."""
     from geometry_rl_torch.train import play
 
     t_phase = time.perf_counter()
@@ -622,7 +632,8 @@ def play_phase(card: str, run_dir: str, steps: int = 100) -> None:
             fail(f"play result for checkpoint {key} is not finite: {entry}")
     print(f"[play] {os.path.basename(run_dir)}: {len(results)} checkpoints, {steps} steps each: {results}; "
           f"phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
-    shutil.rmtree(os.path.dirname(run_dir))
+    if not keep:
+        shutil.rmtree(os.path.dirname(run_dir))
 
 
 def profile_phase(card: str, config: str, steps: int = 2) -> None:
@@ -1311,9 +1322,122 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def new_phases(card: str, only=None) -> dict:
-    """Phases 28-31 (those in `only`, where given), each printing its
-    seconds; returns their launch counts."""
+def smoke_env_phase(card: str, num_envs: int = 4, steps: int = 3) -> dict:
+    """Phase 32: `tools.smoke_env` on every task on the card: the last
+    step's observations finite and on the card; K2's port launches exactly
+    2 substeps x (10 warm-up steps + `steps`) times on cloth_hanging (solver
+    mode "auto"), neither kernel on the other tasks. Returns the launch
+    counts by task."""
+    import contextlib
+    import io
+
+    import torch
+
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.tools import smoke_env
+
+    t_phase = time.perf_counter()
+    counts = {}
+    for task in smoke_env.TASKS:
+        out = io.StringIO()
+        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+        with contextlib.redirect_stdout(out):
+            env, _, ts = smoke_env.main(["--task", task, "--num-envs", str(num_envs), "--steps", str(steps), "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts[task] = dict(LAUNCHES)
+        expected = {"cloth_solve": 2 * (10 + steps) if task == "cloth_hanging" else 0, "cloth_solve_env": 0}
+        lines = out.getvalue().splitlines()
+        print(f"[smoke_env] {task}: {lines[0]}; {len(env.obs_spec.names)} observation groups; {lines[-2]}; "
+              f"cloth kernel launches {counts[task]} (expected {expected})")
+        for group, v in ts.obs.items():
+            if v.device.type != "cuda" or not torch.isfinite(v).all():
+                fail(f"smoke_env {task}: observation group {group} is on {v.device} or not finite")
+        if lines[-1] != "OK" or not all(line.endswith("obs finite True") for line in lines if line.startswith("step ")):
+            fail(f"smoke_env {task} printed {lines[-4:]}")
+        if counts[task] != expected:
+            fail(f"smoke_env {task} launched {counts[task]}, expected {expected}")
+    print(f"[smoke_env] phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    return counts
+
+
+def eval_breakdown_phase(card: str, run_dir: str) -> None:
+    """Phase 33: `tools.eval_breakdown --episodes 1` on phase 10's
+    full-width rigid_insertion run: every shape reported, the per-shape
+    episodes sum to the overall count, every value finite, neither cloth
+    kernel launched. The run dir is removed after."""
+    import math
+
+    from geometry_rl_torch.envs.rigid import SHAPE_NAMES
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.tools import eval_breakdown
+
+    t_phase = time.perf_counter()
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    report = eval_breakdown.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes", "1",
+                                  "--out", os.path.join(run_dir, "eval_breakdown.json"), "--device", "cuda"])
+    per_shape, overall = report["per_shape"], report["overall"]
+    seconds = time.perf_counter() - t_phase
+    print(f"[eval_breakdown] {os.path.basename(run_dir)}: overall {overall}; per shape "
+          + ", ".join(f"{k} {v['episodes']} ep {v['success_rate']:.4f} at {v['mean_final_distance']:.4f}" for k, v in per_shape.items())
+          + f"; cloth kernel launches {dict(LAUNCHES)}; phase took {seconds:.2f} s; on {card}")
+    if sorted(per_shape) != sorted(SHAPE_NAMES):
+        fail(f"eval_breakdown reported the shapes {sorted(per_shape)}, expected {sorted(SHAPE_NAMES)}")
+    if sum(v["episodes"] for v in per_shape.values()) != overall["episodes"] or overall["episodes"] <= 0:
+        fail(f"eval_breakdown's per-shape episodes do not sum to overall's {overall['episodes']}")
+    values = [v for entry in (overall, *per_shape.values()) for v in entry.values()]
+    if not all(math.isfinite(v) for v in values):
+        fail(f"eval_breakdown reported non-finite values: {report}")
+    if any(LAUNCHES.values()):
+        fail(f"eval_breakdown on rigid_insertion launched {dict(LAUNCHES)}")
+    shutil.rmtree(os.path.dirname(run_dir))
+
+
+def learn_check_phase(card: str, iterations: int = 2) -> dict:
+    """Phase 34: `tools.learn_check` on cloth_hanging at the cloth config's
+    width (100 envs, minibatches of 200), `iterations` iterations: finite
+    rows with the JAX script's keys and a `SUMMARY` line; K2's port launches
+    exactly 2 substeps x `iterations` x 100 steps (the tool's env has no
+    warm-up steps), K1's never. Returns the launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.tools import learn_check
+
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    with contextlib.redirect_stdout(out):
+        learn_check.main(["--task", "cloth_hanging", "--num-envs", "100", "--mini-batch", "200",
+                          "--iterations", str(iterations), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    expected = {"cloth_solve": 2 * iterations * 100, "cloth_solve_env": 0}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"[learn_check] {line}")
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    summary = [line for line in lines if line.startswith("SUMMARY ")]
+    print(f"[learn_check] cloth kernel launches {launches} (expected {expected}); phase took "
+          f"{time.perf_counter() - t_phase:.2f} s; on {card}")
+    keys = ["iter", "reward", "kl", "ESS", "entropy", "loss_critic", "explained_var", "it_time"]
+    if len(rows) != iterations or any(list(r) != keys for r in rows):
+        fail(f"learn_check printed the rows {rows}, expected {iterations} with the keys {keys}")
+    if not all(isinstance(v, (int, float)) and abs(v) < float("inf") for r in rows for v in r.values()):
+        fail(f"learn_check printed non-finite rows: {rows}")
+    if len(summary) != 1:
+        fail(f"learn_check printed {len(summary)} SUMMARY lines")
+    if launches != expected:
+        fail(f"learn_check on cloth_hanging launched {launches}, expected {expected}")
+    return launches
+
+
+def new_phases(card: str, only=None, rigid_run=None) -> dict:
+    """Phases 28-34 (those in `only`, where given), each printing its
+    seconds; returns their launch counts. Phase 33 reads phase 10's run
+    (`rigid_run`); without it, it trains one as phase 10 does."""
     t0 = time.perf_counter()
     out = {}
     if not only or 28 in only:
@@ -1325,6 +1449,17 @@ def new_phases(card: str, only=None) -> dict:
     if not only or 31 in only:
         out["dp"] = dp_phase(card)  # ---- 31. data parallelism on one card
     print(f"[new] phases 28-31 took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    if not only or 32 in only:
+        out["smoke_env"] = smoke_env_phase(card)  # ---- 32. tools.smoke_env on every task
+    if not only or 33 in only:
+        if rigid_run is None:
+            rigid_run, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"],
+                                       {"cloth_solve": 0, "cloth_solve_env": 0})
+        eval_breakdown_phase(card, rigid_run)  # ---- 33. tools.eval_breakdown at full width
+    if not only or 34 in only:
+        out["learn_check"] = learn_check_phase(card)  # ---- 34. tools.learn_check through K2's port
+    print(f"[new] phases 32-34 took {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -1379,7 +1514,7 @@ def main() -> int:
         if main.get("spill_store_bytes", 0) or main.get("spill_load_bytes", 0):
             fail(f"{MAIN_PATH_KERNELS[lib]} spills registers: {main}")
 
-    if "--new-phases" in sys.argv:  # phases 28-31 alone (or those listed after it), for work on them; no result line
+    if "--new-phases" in sys.argv:  # phases 28-34 alone (or those listed after it), for work on them; no result line
         listed = sys.argv[sys.argv.index("--new-phases") + 1:]
         new_phases(card, {int(p) for p in listed[0].split(",")} if listed and listed[0][0].isdigit() else None)
         return 1 if FAILURES else 0
@@ -1485,10 +1620,10 @@ def main() -> int:
     parity_phase(card, RIGID_CONFIG, {"body positions": lambda s: s.scene.bodies.pos})
 
     # ---- 10. rigid_insertion training at full width through the CLI -------
-    run_dir, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"], {"cloth_solve": 0, "cloth_solve_env": 0})
+    rigid_run, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"], {"cloth_solve": 0, "cloth_solve_env": 0})
 
-    # ---- 11. play on that run -------------------------------------------------
-    play_phase(card, run_dir)
+    # ---- 11. play on that run (kept for phase 33) -------------------------------
+    play_phase(card, rigid_run, keep=True)
 
     # ---- 12. where the rigid collect's device time goes -----------------------
     profile_phase(card, RIGID_CONFIG)
@@ -1571,7 +1706,7 @@ def main() -> int:
     for algo in ("kl_ppo", "ppo"):
         update_profile_phase(card, RIGID_CONFIG, collect_steps=10, overrides=(f"algo={algo}",))
 
-    new = new_phases(card)
+    new = new_phases(card, rigid_run=rigid_run)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} gate(s) failed: {FAILURES}", file=sys.stderr)
@@ -1587,7 +1722,9 @@ def main() -> int:
          "launches_ppo_training": ppo_launches[name], "launches_papi_training": papi_launches[name],
          **({"launches_bc_recording": new["bc"]["record"], "launches_bc_evals": new["bc"]["eval_rollout"] + new["bc"]["eval_success"],
              "launches_render": new["render"], "launches_dp_rank": new["dp"]["rank"]["cloth_solve"]}
-            if name == "cloth_solve" else {})}
+            if name == "cloth_solve" else {}),
+         "launches_smoke_env_cloth": new["smoke_env"]["cloth_hanging"][name],
+         "launches_learn_check": new["learn_check"][name]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ]}))
     print(smi)

@@ -56,6 +56,11 @@ class FixedJointSpec(NamedTuple):
     rel_quat: torch.Tensor  # [NJ, 4] or [B, NJ, 4]
 
 
+def axis_mask_from_bits(bits: int, device=None) -> torch.Tensor:
+    """orbit locked-axis bitmask -> free-axis multiplier (1 free, 0 locked)."""
+    return torch.tensor([0.0 if bits & b else 1.0 for b in (1, 2, 4)], dtype=torch.float32, device=device)
+
+
 def box_inertia(mass: float, size, device=None) -> torch.Tensor:
     """Diagonal inertia of a solid box with full extents `size`."""
     sx, sy, sz = size

@@ -14,10 +14,20 @@ evaluated checkpoint's rollout into DIR (`train/render.py`, matplotlib).
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 
 import torch
+
+
+def find_latest_run(log_root: str, prefix: str) -> str:
+    """The last run dir (by name, which ends in the start time) under
+    `log_root` whose name starts with `prefix`."""
+    candidates = sorted(glob.glob(os.path.join(log_root, f"{prefix}*")))
+    if not candidates:
+        raise FileNotFoundError(f"no runs matching {prefix} under {log_root}")
+    return candidates[-1]
 
 
 def main(argv=None):

@@ -147,8 +147,9 @@ def test_port_imports_no_jax(tmp_path):
     """The port on the CPU (trainer_from_config -> init -> a 2-step _collect
     -> train_iteration, then the training CLI and play on a tiny cloth run
     with `use_pallas_solver=true`, on a tiny rigid_insertion run, on a tiny
-    rope_closing run and on a tiny EMPN cloth run) imports neither jax, flax,
-    optax nor the JAX package, nor its native library."""
+    rope_closing run and on a tiny EMPN cloth run, and the three tools at a
+    tiny size) imports neither jax, flax, optax nor the JAX package, nor its
+    native library."""
     code = (
         "import sys, json, torch\n"
         "from geometry_rl_torch.config import load_config, trainer_from_config\n"
@@ -173,6 +174,13 @@ def test_port_imports_no_jax(tmp_path):
         "res = play.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes-steps', '8', "
         "'--success-threshold', '0.1', '--device', 'cpu'])\n"
         "assert 0.0 <= res['0']['success_rate'] <= 1.0\n"
+        "from geometry_rl_torch.tools import eval_breakdown, learn_check, smoke_env\n"
+        "rep = eval_breakdown.main(['--run-dir', run, '--checkpoint', 'checkpoints', '--episodes', '1', '--device', 'cpu'])\n"
+        "assert rep['overall']['episodes'] == 4 and len(rep['per_shape']) == 4\n"
+        "smoke_env.main(['--task', 'cloth_hanging', '--num-envs', '2', '--steps', '2', '--device', 'cpu'])\n"
+        "hist, summary = learn_check.main(['--task', 'rope_closing', '--num-envs', '2', '--iterations', '1', "
+        "'--steps-per-batch', '2', '--mini-batch', '4', '--device', 'cpu'])\n"
+        "assert len(hist) == 1 and summary['env_steps'] == 4\n"
         "run = cli.main(['--config', 'rope_closing_hepi_trpl', '--device', 'cpu', '--override', "
         "'env.num_envs=4', 'env.kwargs.num_links=10', 'env.kwargs.rope_length=1.25', 'env.kwargs.episode_length=6', "
         "'collector.frames_per_batch=24', 'collector.total_frames=24', 'algorithm.latent_dim=8', 'algorithm.num_ori=4', "
