@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering, data parallelism and the evaluation tools on one GPU.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering, data parallelism and the evaluation tools on one GPU, and show that two runs from one seed give the same bits.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-34 (or those listed) only, no result lines
+    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-35 (or those listed) only, no result lines
+    python3 chip_smoke.py --new-phases 15             # phase 15b alone, on the updates of short runs
     python3 chip_smoke.py --keep-going   # report every failed gate, then exit non-zero
 
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
      TF32 off for matmuls and convolutions.
   2. build: compile (or reuse) csrc/cloth_solve.cu and csrc/cloth_solve_env.cu
-     (both instantiate csrc/cloth_solve_common.cuh) into
-     geometry_rl_torch/_build/, both nvcc runs at once; per kernel, the
+     (both instantiate csrc/cloth_solve_common.cuh) and csrc/segment_sum.cu
+     (the graph models' fixed-order message sums) into
+     geometry_rl_torch/_build/, the three nvcc runs at once; per kernel, the
      registers, shared memory and spill bytes ptxas reported. The main paths'
      instantiations must not spill.
   3. kernels vs plain version on the card, on the real ClothEnv topology:
@@ -26,7 +28,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
   4. the rollout at full width (cloth_hanging_multi_hepi_trpl: 100 envs,
      latent 64, 16 orientations, the config's dtype): init(seed 0), one
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
-     the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times.
+     the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times;
+     HEPi's message sums launched the segment-sum kernel, and no CSR was made
+     on the spot.
   5. the rollout on a small input (4 envs, f32): 3 deterministic steps on the
      card, each also taken by the CPU (where the solve is the plain version)
      from a copy of the card's state: actions, rewards and particle positions
@@ -38,7 +42,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
      the reference's keys, the params moved, K1's port ran exactly
      2 x (10 + 100) = 220 times and K2's never, and the last checkpoint
      restores bit-exactly into a fresh trainer. Seconds per iteration, collect
-     and update apart.
+     and update apart. Every training phase (6, 10, 15, 18-20, 23-25) also
+     counts the segment-sum kernel's launches: more than 0 for a graph model
+     (HEPi, EMPN), 0 for the Transformer, and no CSR made on the spot.
   7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json.
   8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
      envs, f32, the same batch, params and permutation: first-minibatch
@@ -52,9 +58,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      Seconds per iteration, collect and update apart, and collect env-steps/s.
  11. `train.play` on that run, as phase 7.
  12. `torch.profiler` over 2 control steps of the rigid_insertion collect at
-     1000 envs: device kernels per control step, device busy ms and idle
-     share, the device time under the env step, the policy and the critic,
-     and the 5 ops and 5 kernels with the most device time.
+     1000 envs (`train/profile.py`'s `collect_window`): device kernels per
+     control step, device busy ms and idle share, the device time under the
+     env step, the policy and the critic, the 5 ops and 5 kernels with the
+     most device time, and the port's kernels per control step.
  13. the cloth env in solver mode `use_pallas_solver=False` (the XPBD
      `step_physics` solver in plain PyTorch, grippers as real bodies) at full
      width (100 envs): 3 control steps from the same state and actions as a
@@ -68,6 +75,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
      (rope_closing_hepi_trpl: 200 envs x 200 steps, 40 links, latent 64, 16
      orientations, the config's dtype, 5 epochs x 200 minibatches of 200; one
      iteration): the checks of phase 10, and neither cloth kernel launches.
+ 15b. the segment-sum kernel on the largest call of the updates of phases 6
+     (cloth), 10 (rigid: the kNN CSR of each env) and 15 (rope), recorded
+     as they ran: bit-equal to its plain version (SEGMENT_TOL = 0: the same
+     order of f32 adds); device ms per launch (a CUDA graph of 50), the plain
+     version's ms, `index_add_` into f32 on the same rows and destinations
+     and the same under PyTorch's deterministic algorithms, and the bound
+     (values, perm and offsets read once, the output written once).
  16. `train.play` on that run (200 steps, threshold 0.1), as phase 11.
  17. `torch.profiler` over 2 control steps of the rope_closing collect at 200
      envs, as phase 12.
@@ -130,11 +144,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
  31. data parallelism on one card: rank 1's env against rows 50..100 of the
      one-process env; 2 gloo processes x 50 envs on cuda:0 beside two
      one-process runs x 100 of cloth_hanging_multi_hepi_trpl (f32, one
-     iteration, 1 update epoch, deterministic algorithms): the collect's
-     metrics and env state within tests/test_parallel.py's tolerances, the
-     first minibatch step within DP_FIRST_GRAD_TOL / DP_FIRST_METRIC_SCALE,
-     the two one-process runs equal; after the whole update, metrics and
-     params printed; K2's port 2 x (10 + 100) launches in every process, the
+     iteration, 1 update epoch, without PyTorch's deterministic algorithms):
+     the collect's metrics and env state within tests/test_parallel.py's
+     tolerances, the first minibatch step within DP_FIRST_GRAD_TOL /
+     DP_FIRST_METRIC_SCALE, the two one-process runs equal at the first
+     minibatch step and after the whole update; 2 ranks after the whole
+     update printed; K2's port 2 x (10 + 100) launches in every process, the
      2-rank checkpoint restored in one process; then a one-rank NCCL launch
      through the CLI.
  32. `tools.smoke_env` on all 7 tasks (4 envs, 3 random steps): the last
@@ -147,6 +162,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
      minibatches of 200, 2 iterations): two finite rows with the JAX
      script's keys and a SUMMARY line; K2's port exactly 2 x 2 x 100
      launches (the tool's env has no warm-up steps), K1's none.
+ 35. reproducibility, without PyTorch's deterministic algorithms: each of
+     cloth_hanging HEPi in solver mode "auto" (K2's port) and with
+     use_pallas_solver=true (K1's), rigid_insertion HEPi, rope_closing HEPi,
+     cloth EMPN, the rigid Transformer, the two-gripper HEPi and
+     rigid_pushing HEPi with dynamic_friction_scale=1.0 (the XPBD velocity
+     pass), at its full width and in its dtype, cut to 10 control steps and
+     one update epoch, twice from one seed: every metric, param, Adam state,
+     normaliser and env state tensor equal (NaN equal to NaN);
+     `tools.eval_breakdown` again on phase 10's run: phase 33's report; in
+     one child process, cloth and rigid HEPi without and with
+     `torch.use_deterministic_algorithms(True)`: the same bits, no warning.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -156,6 +182,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -174,9 +201,9 @@ PEAK_F32_PER_S = 67e12
 # a few 1e-6 from the plain solve; the untrained policy's mean actions reach
 # ~1e2, and the action-rate reward term squares them
 SLICE_TOL = 1e-4
-# card vs CPU over one update phase: the backward's scatter-adds use atomics
-# on the card and sum in another order than the CPU, so gradients agree to
-# rounding relative to their global norm; Adam moves each param by at most
+# card vs CPU over one update phase: the card's matrix products and reductions
+# sum in another order than the CPU's, so gradients agree to rounding
+# relative to their global norm; Adam moves each param by at most
 # ~lr = 3e-4 per step, normalised by the gradient's scale
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
@@ -186,13 +213,19 @@ PARAM_TOL = 1e-5
 # scale at k = 12 on the CPU (the covariance-only projection's gradient), so
 # two f32 programs cannot be held to each other much closer than that
 FULLCOV_TOL = 2e-4
-LIBRARIES = ("cloth_solve", "cloth_solve_env")
+LIBRARIES = ("cloth_solve", "cloth_solve_env", "segment_sum")
 # the paper's headline configuration: 1000 envs x 100 steps per iteration
 RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
 # the deformable-chain family: 200 envs x 200 steps per iteration, 40 links
 ROPE_CONFIG = "rope_closing_hepi_trpl"
-# the instantiation each library launches on the main paths (self-collision off)
-MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel"}
+# the kernel each library launches on the main paths (the cloth solves with
+# self-collision off; both type instantiations of the segment sum)
+MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel",
+                     "segment_sum": "segment_sum_kernel"}
+# the segment-sum kernel adds in the plain version's order: bit-equal
+SEGMENT_TOL = 0.0
+# the graph models, whose every forward sums messages with the segment-sum kernel
+GRAPH_MODELS = ("hepi", "empn", "gcn", "meshgraphnet")
 # the reference's per-iteration metric keys: the loss's own keys by algorithm
 # (TRPL with its constraint metrics, clipped PPO, KL-penalty PPO), then the
 # update's, the collect's and the CLI's
@@ -272,6 +305,128 @@ def bound_ms(nbytes: int, flops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def main_path_kernels(lib: str, info: dict) -> list:
+    """The names ptxas reported for `lib`'s main-path kernel: the name itself,
+    or the C++ names of its template instantiations."""
+    want = MAIN_PATH_KERNELS[lib]
+    return [k for k in info if k == want] or [k for k in info if k.startswith("_Z") and want in k]
+
+
+def segment_counts():
+    """(the segment-sum kernel's launches, the CSRs made on the spot) since the last reset."""
+    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ON_THE_SPOT
+
+    return SEG["segment_sum"], ON_THE_SPOT["csr"]
+
+
+def reset_segment_counts() -> None:
+    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ON_THE_SPOT
+
+    SEG["segment_sum"] = ON_THE_SPOT["csr"] = 0
+
+
+class LargestSegmentCall:
+    """While open, keeps a copy of the largest (by values) call of the
+    segment-sum kernel made inside `Trainer._update`: the update's forwards
+    and their backward. `into[key]` = (values, csr)."""
+
+    def __init__(self, into: dict, key: str):
+        self.into, self.key, self.updating = into, key, False
+
+    def __enter__(self):
+        from geometry_rl_torch.graphs.types import CSR
+        from geometry_rl_torch.models import segment
+        from geometry_rl_torch.train import ppo
+
+        self.launch, self.update = segment.segment_sum_cuda, ppo.Trainer._update
+
+        def recording(values, csr):
+            best = self.into.get(self.key)
+            if self.updating and (best is None or values.numel() > best[0].numel()):
+                self.into[self.key] = (values.clone(), CSR(csr.perm.clone(), csr.offsets.clone()))
+            return self.launch(values, csr)
+
+        def updating(trainer, *args, **kwargs):
+            self.updating = True
+            try:
+                return self.update(trainer, *args, **kwargs)
+            finally:
+                self.updating = False
+
+        segment.segment_sum_cuda, ppo.Trainer._update = recording, updating
+        return self
+
+    def __exit__(self, *exc):
+        from geometry_rl_torch.models import segment
+        from geometry_rl_torch.train import ppo
+
+        segment.segment_sum_cuda, ppo.Trainer._update = self.launch, self.update
+        return False
+
+
+def segment_kernel_phase(card: str, calls: dict) -> dict:
+    """The segment-sum kernel on the largest call of each training phase's
+    update (recorded by `LargestSegmentCall`): bit-equal to its plain version
+    (SEGMENT_TOL), device ms per launch (a CUDA graph of 50 launches), the
+    plain version's ms, the bound (values, perm and offsets read once, the
+    output written once, over 3.35 TB/s; one f32 add per value over 67
+    TFLOP/s), and the library's: one `index_add_` into f32 on the same rows
+    and destinations (the sum in an order that changes from run to run; it
+    reads the rows in f32, twice the bytes of bf16 values), the same call under
+    PyTorch's deterministic algorithms (an accumulating `index_put_` that sorts
+    the indices on every call), and what the parent's `scatter_sum` ran for
+    the same sum from the values' own dtype (zeros, a cast to f32,
+    `index_add_`, a cast back). Returns per family (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms, library_det_ms, shape, index_add_sequence_ms)."""
+    import torch
+
+    from geometry_rl_torch.models.segment import segment_sum_cuda, segment_sum_ref
+
+    t_phase = time.perf_counter()
+    stats = {}
+    for family, (values, csr) in calls.items():
+        B, E, F = values.shape
+        n, Bp = csr.num_segments, csr.perm.shape[0]
+        got, want = segment_sum_cuda(values, csr), segment_sum_ref(values, csr)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ms = graph_ms(lambda: segment_sum_cuda(values, csr))
+        plain_ms = timed_ms(lambda: segment_sum_ref(values, csr), 3)[0]
+        # each row's destination, back from the CSR, on the flattened (env, node) axis
+        pos = torch.arange(E, device=values.device).expand(Bp, E).contiguous()
+        seg = torch.searchsorted(csr.offsets[:, 1:].contiguous().long(), pos, right=True)
+        dst = torch.empty_like(seg).scatter_(1, csr.perm.long(), seg).expand(B, E)
+        flat = (dst + n * torch.arange(B, device=values.device)[:, None]).reshape(-1)
+        rows = values.float().reshape(B * E, F)
+        acc = torch.zeros((B * n, F), device=values.device)
+        library_ms = timed_ms(lambda: acc.index_add_(0, flat, rows), 10)[0]
+        torch.use_deterministic_algorithms(True)
+        try:
+            library_det_ms = timed_ms(lambda: acc.index_add_(0, flat, rows), 10)[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        own = values.reshape(B * E, F)
+        sequence_ms = timed_ms(lambda: torch.zeros((B * n, F), device=values.device).index_add_(
+            0, flat, own.float()).to(values.dtype), 10)[0]
+        elt = values.element_size()
+        nbytes = values.numel() * elt + 4 * csr.perm.numel() + 4 * csr.offsets.numel() + B * n * F * elt
+        bound, bound_by = bound_ms(nbytes, values.numel())
+        depth = (csr.offsets[:, 1:] - csr.offsets[:, :-1]).max().item()
+        print(f"[kernel] segment_sum, {family}'s largest update call: values [{B}, {E}, {F}] {values.dtype}, "
+              f"{n} segments, CSR of {'each env' if Bp > 1 else 'all envs'}, longest segment {depth}: max|kernel - "
+              f"plain| = {err:.3e} (tol {SEGMENT_TOL}); kernel {ms:.5f} ms on the device, plain {plain_ms:.4f} ms, "
+              f"index_add_ (f32 rows) {library_ms:.5f} ms, index_add_ under deterministic algorithms "
+              f"{library_det_ms:.5f} ms, zeros + cast + index_add_ + cast from {values.dtype} {sequence_ms:.5f} ms; "
+              f"bound {bound:.5f} ms by {bound_by} ({nbytes} bytes), {100 * bound / ms:.2f}% of it; on {card}")
+        if not err <= SEGMENT_TOL:
+            fail(f"segment_sum disagrees with its plain version on {family}'s call: {err}")
+        stats[family] = (err, ms, plain_ms, bound, bound_by, library_ms, library_det_ms, [B, E, F], sequence_ms)
+    print(f"[kernel] segment_sum phase took {time.perf_counter() - t_phase:.2f} s")
+    if sorted(stats) != sorted(calls) or not stats:
+        fail(f"segment_sum was checked on {sorted(stats)}: no update call was recorded")
+    return stats
+
+
 def moved(obj, device):
     """Tensors of a NamedTuple / dict tree moved to `device`."""
     import torch
@@ -310,9 +465,12 @@ def solve_inputs(env, generator):
             env.groups, env.self_pair_mask_full, env.self_active_full)
 
 
-def train_phase(card: str, config: str, overrides, expected: dict):
+def train_phase(card: str, config: str, overrides, expected: dict, record=None):
     """Full-width training through the CLI (`config` with `overrides`, on the
-    card): the cloth kernels must launch exactly `expected` times, every
+    card): the cloth kernels must launch exactly `expected` times, a graph
+    model's message sums launch the segment-sum kernel and never make a CSR
+    on the spot, and `record` (a `LargestSegmentCall`) keeps the update's
+    largest call of that kernel; every
     metrics row is finite with the reference's keys for its algorithm, the
     params move, and the last checkpoint restores bit-exactly into a fresh
     trainer; with PAPI steps so does PAPI's carry (`<checkpoints>_papi`), and
@@ -333,15 +491,23 @@ def train_phase(card: str, config: str, overrides, expected: dict):
     B, T = cfg["env"]["num_envs"], cfg["collector"]["frames_per_batch"] // cfg["env"]["num_envs"]
     iterations = cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]
     LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    reset_segment_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run_dir = cli.main(["--config", config, "--device", "cuda", "--override", *overrides])
+    with record or contextlib.nullcontext():
+        run_dir = cli.main(["--config", config, "--device", "cuda", "--override", *overrides])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    segment, on_the_spot = segment_counts()
     print(f"[train] {config}: {iterations} iterations of {B} envs x {T} steps; cloth kernel launches {launches} "
-          f"(expected {expected}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"(expected {expected}); segment_sum launches {segment}, CSRs made on the spot {on_the_spot}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if launches != expected:
         fail(f"the training path of {config} launched {launches}, expected {expected}")
+    if (cfg["model"] in GRAPH_MODELS) != (segment > 0) or on_the_spot:
+        fail(f"the training path of {config} ({cfg['model']}) launched segment_sum {segment} times and made "
+             f"{on_the_spot} CSRs on the spot")
+    launches["segment_sum"] = segment
 
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
@@ -637,69 +803,26 @@ def play_phase(card: str, run_dir: str, steps: int = 100, keep: bool = False) ->
 
 
 def profile_phase(card: str, config: str, steps: int = 2) -> None:
-    """`torch.profiler` over `steps` control steps of `config`'s collect at
-    full width (after a warm-up collect of as many steps): device
-    kernels per control step, device busy ms and idle share of the window's
-    wall time, the device time under the env step, the policy and the
-    critic, and the ops and kernels with the most device time."""
+    """Phases 12 and 17: `train/profile.py`'s collect window over `steps`
+    control steps of `config`'s collect at full width (after a warm-up
+    collect of as many steps): device kernels per control step, device busy
+    ms and idle share of the window's wall time, the device time under the
+    env step, the policy and the critic, and the ops and kernels with the
+    most device time."""
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.profile import collect_window
 
     t_phase = time.perf_counter()
     cfg = load_config(config)
     cfg["collector"]["frames_per_batch"] = steps * cfg["env"]["num_envs"]
     trainer = trainer_from_config(cfg, device="cuda")
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
-    state, _, _ = trainer._collect(state)  # warm-up
-    torch.cuda.synchronize()
-
-    ranges = {"env.step": (trainer.env, "step"), "policy": (trainer, "_policy_dist"), "critic": (trainer, "_value")}
-    for label, (obj, attr) in ranges.items():
-        def ranged(*a, _fn=getattr(obj, attr), _label=label, **k):
-            with torch.profiler.record_function(_label):
-                return _fn(*a, **k)
-        setattr(obj, attr, ranged)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        trainer._collect(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    for obj, attr in ranges.values():
-        delattr(obj, attr)
-    events = prof.events()
-    annotations = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                   and getattr(e, "is_user_annotation", False)} | set(ranges)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and e.name not in annotations]
-    if not kernels:
+    stats = collect_window(trainer, state, steps, tag=f"{cfg['task']} ")
+    if not stats["kernels_per_control_step"] > 0:
         fail(f"the profiler recorded no device kernels in the {cfg['task']} collect")
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"[profile] {cfg['task']} collect, {cfg['env']['num_envs']} envs, {steps} control steps after a warm-up: "
-          f"{1e3 * wall:.1f} ms wall, {len(kernels) / steps:.0f} device kernels per control step, device busy "
-          f"{busy_ms:.1f} ms, idle {100 - 100 * busy_ms / 1e3 / wall:.1f}% of the wall; on {card}")
-    for label in ranges:
-        spans = [e for e in events if e.name == label and e.device_type == torch.autograd.DeviceType.CPU]
-        dev_ms = sum(e.device_time_total for e in spans) / 1e3
-        host_ms = sum(e.time_range.elapsed_us() for e in spans) / 1e3
-        print(f"[profile]   {label}: {len(spans) // steps} calls per control step, {dev_ms:.2f} ms of device time "
-              f"({100 * dev_ms / busy_ms:.1f}% of busy), {host_ms:.1f} ms of host time")
-
-    def self_device_us(avg):
-        return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0.0)
-    ops = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CPU
-                  and a.key not in annotations), key=lambda a: -self_device_us(a))
-    for a in ops[:5]:
-        print(f"[profile]   op {a.key}: {self_device_us(a) / 1e3:.2f} ms of device time, {a.count // steps} calls "
-              f"per control step")
-    by_name = {}
-    for e in kernels:
-        c, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
-    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
-        print(f"[profile]   kernel {t / 1e3:8.2f} ms {c // steps:6d}x per control step  {name[:100]}")
-    print(f"[profile] phase took {time.perf_counter() - t_phase:.2f} s")
+    print(f"[profile] {cfg['task']} collect window on {card}; phase took {time.perf_counter() - t_phase:.2f} s")
 
 
 def update_profile_phase(card: str, config: str, collect_steps: int, minibatches: int = 10, overrides: tuple = ()) -> dict:
@@ -1122,15 +1245,17 @@ def dp_phase(card: str) -> dict:
     processes on cuda:0 with gloo (NCCL refuses two ranks on one device)
     train one iteration of CLOTH_CONFIG at 100 envs, 2 x 50, in f32 with 1
     update epoch (for time, as phases 19-20), beside two one-process runs of
-    the same config and seed. Gated against the first one-process run, with
-    `tests/test_parallel.py`'s tolerances: the collect (its metrics within
+    the same config and seed, none with PyTorch's deterministic algorithms.
+    Gated against the first one-process run, with `tests/test_parallel.py`'s
+    tolerances: the collect (its metrics within
     DP_METRIC_ATOL + DP_METRIC_RTOL |a|, the env's float state within
     DP_STATE_TOL); the first minibatch step, its gradients all-reduced,
     within DP_FIRST_GRAD_TOL of their global norm and its metrics within
     DP_FIRST_METRIC_SCALE of that tolerance; the second one-process run
-    equal to the first (every process runs PyTorch's deterministic
-    algorithms). After the whole 50-step update the metrics and params are
-    printed, not gated: Adam compounds the first step's rounding gap. K2's port launches 2 x (10 + 100) times in every
+    equal to the first, at its first minibatch step and after the whole
+    update (metrics, params and env state). 2 ranks against one process
+    after the whole 50-step update: printed, not gated (Adam compounds the
+    first step's rounding gap). K2's port launches 2 x (10 + 100) times in every
     process; the 2-rank checkpoint (the whole env state, gathered) restores
     in one process. Then a one-rank NCCL launch through the CLI trains 1
     iteration. Returns the launch counts per process."""
@@ -1164,8 +1289,7 @@ def dp_phase(card: str) -> dict:
     overrides = ["collector.total_frames=10000", "algorithm.objective.ppo_epochs=1", "algorithm.dtype=float32",
                  "logger.checkpoint.save_interval=1"]
     def start(name, backend=None, rank=None, world=None, port=None):
-        env = dict(os.environ, FIRST_MINIBATCH=os.path.join(root, f"first_{name}_{rank or 0}.pt"),
-                   CUBLAS_WORKSPACE_CONFIG=":4096:8")  # what cuBLAS needs to be deterministic
+        env = dict(os.environ, FIRST_MINIBATCH=os.path.join(root, f"first_{name}_{rank or 0}.pt"))
         if rank is not None:
             env.update(GEOMRL_COORDINATOR=f"localhost:{port}", GEOMRL_NUM_PROCESSES=str(world), GEOMRL_PROCESS_ID=str(rank))
         cmd = [sys.executable, "-c", DP_WORKER, "--config", CLOTH_CONFIG, "--device", "cuda",
@@ -1259,23 +1383,23 @@ def dp_phase(card: str) -> dict:
           f"{r1['train/iteration_time']:.3f} s = {r1['train/collect_time']:.3f} + {r1['train/update_time']:.3f} s; "
           f"launches per process {launches} (expected {expected} each); the 2-rank checkpoint restores in one process: "
           f"{restore_ok}; on {card}")
-    nondeterministic = sorted({line.strip() for out in outs for line in out.splitlines() if "deterministic" in line})
-    print(f"[dp] deterministic algorithms on; the ops that have none warned: {nondeterministic or 'none'}")
     print(f"[dp] 2 ranks vs one process: the collect's metrics at most {collect_err:.3f} of their tolerance, env float "
           f"state max |diff| {dp_cmp[2]:.3e} (tol {DP_STATE_TOL}); the first minibatch step: gradients max |diff| / "
           f"global norm {dp_first[0]:.3e} (tol {DP_FIRST_GRAD_TOL}), metrics at most {dp_first[1]:.3f} of their "
           f"tolerance (tol {DP_FIRST_METRIC_SCALE})")
     print(f"[dp] after the 50-step update (not gated: each step compounds the rounding of the last): 2 ranks vs one "
           f"process: {describe(*dp_cmp)}")
-    print(f"[dp] the same for one process vs the same run again (deterministic algorithms: expected equal): "
-          f"{describe(*rerun_cmp)}; first minibatch step: gradients {rerun_first[0]:.3e}, metrics {rerun_first[1]:.3f}")
+    rerun_equal = rerun_cmp[0][0][0] == 0.0 and rerun_cmp[1][0] == 0.0 and rerun_cmp[2] == 0.0
+    print(f"[dp] one process vs the same run again, without PyTorch's deterministic algorithms (gated: equal after "
+          f"the whole update): {describe(*rerun_cmp)}; first minibatch step: gradients {rerun_first[0]:.3e}, metrics "
+          f"{rerun_first[1]:.3f}; equal {rerun_equal}")
     if any(n != expected for n in launches):
         fail(f"the data-parallel processes launched {launches}, expected {expected} each")
     if not (collect_err <= 1.0 and dp_cmp[2] <= DP_STATE_TOL and dp_first[0] <= DP_FIRST_GRAD_TOL
-            and dp_first[1] <= DP_FIRST_METRIC_SCALE and rerun_first == (0.0, 0.0) and restore_ok):
+            and dp_first[1] <= DP_FIRST_METRIC_SCALE and rerun_first == (0.0, 0.0) and rerun_equal and restore_ok):
         fail(f"2 ranks disagree with one process: collect metrics {collect_err}, env state {dp_cmp[2]}, first "
              f"minibatch gradients {dp_first[0]} and metrics {dp_first[1]} (one process against itself: "
-             f"{rerun_first}), restore {restore_ok}")
+             f"{rerun_first}, equal after the update {rerun_equal}), restore {restore_ok}")
     t0 = time.perf_counter()
     (nccl_launches,), (out,) = finish([start("nccl", None, 0, 1, free_port())])
     row = json.loads(open(os.path.join(run_dir("nccl"), "metrics.jsonl")).readline())
@@ -1289,15 +1413,12 @@ def dp_phase(card: str) -> dict:
     return {"rank": launches[0], "one": launches[2], "nccl": nccl_launches}
 
 
-# one process of phase 31: the training CLI with PyTorch's deterministic
-# algorithms (the backward's scatter-adds otherwise sum in another order every
-# run), the first minibatch step's gradients (all-reduced, under data
-# parallelism) and metrics saved to $FIRST_MINIBATCH, then the cloth kernels'
-# launch counts printed
+# one process of phase 31: the training CLI as a user runs it (no
+# deterministic algorithms: the message sums follow fixed orders), the first
+# minibatch step's gradients (all-reduced, under data parallelism) and metrics
+# saved to $FIRST_MINIBATCH, then the cloth kernels' launch counts printed
 DP_WORKER = """
-import json, os, sys, warnings, torch
-torch.use_deterministic_algorithms(True, warn_only=True)
-warnings.simplefilter("once")
+import json, os, sys, torch
 from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train import cli, ppo
 step = ppo.Trainer._minibatch_step
@@ -1360,11 +1481,11 @@ def smoke_env_phase(card: str, num_envs: int = 4, steps: int = 3) -> dict:
     return counts
 
 
-def eval_breakdown_phase(card: str, run_dir: str) -> None:
+def eval_breakdown_phase(card: str, run_dir: str) -> dict:
     """Phase 33: `tools.eval_breakdown --episodes 1` on phase 10's
     full-width rigid_insertion run: every shape reported, the per-shape
     episodes sum to the overall count, every value finite, neither cloth
-    kernel launched. The run dir is removed after."""
+    kernel launched. Returns the report (phase 35 makes it again)."""
     import math
 
     from geometry_rl_torch.envs.rigid import SHAPE_NAMES
@@ -1389,7 +1510,156 @@ def eval_breakdown_phase(card: str, run_dir: str) -> None:
         fail(f"eval_breakdown reported non-finite values: {report}")
     if any(LAUNCHES.values()):
         fail(f"eval_breakdown on rigid_insertion launched {dict(LAUNCHES)}")
-    shutil.rmtree(os.path.dirname(run_dir))
+    return report
+
+
+# phase 35's configurations, each at its full width: (config, overrides)
+REPRO_CONFIGS = (
+    ("cloth_hanging_multi_hepi_trpl", ()),  # solver mode "auto": K2's port
+    ("cloth_hanging_multi_hepi_trpl", ("env.kwargs.use_pallas_solver=true",)),  # K1's port
+    (RIGID_CONFIG, ()),
+    (ROPE_CONFIG, ()),
+    ("cloth_hanging_multi_empn_trpl", ()),
+    ("rigid_insertion_multi_transformer_trpl", ()),
+    ("rigid_insertion_two_agents_multi_hepi_trpl", ()),
+    # the XPBD velocity pass, in the JAX package's material learn-check setting (scripts/r3_queue.sh)
+    ("rigid_pushing_multi_hepi_trpl", ("env.kwargs.dynamic_friction_scale=1.0",)),
+)
+REPRO_STEPS = 10  # control steps per collect: 5 to 10 minibatches of the update's one epoch
+
+
+def all_tensors(tree) -> list:
+    """Every tensor of a tree of tuples, lists and dicts, in order."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in all_tensors(x)]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in all_tensors(tree[k])]
+    return []
+
+
+def same_bits(a, b) -> bool:
+    """Equal in shape, type and every value; NaN equals NaN (rigid rewards are NaN while no episode ends)."""
+    import torch
+
+    if not (torch.is_tensor(a) and torch.is_tensor(b)):
+        return a == b or (a != a and b != b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def short_run(config: str, overrides=(), device: str = "cuda") -> dict:
+    """One `train_iteration` of `config` at its full width and in its dtype,
+    from its seed, cut in depth to REPRO_STEPS control steps (warm-up steps
+    included as configured) and one update epoch. Returns what a run
+    decides: every metric but the times, the params, the Adam states and the
+    env state's tensors."""
+    import torch
+
+    from geometry_rl_torch.config import load_config, trainer_from_config
+    from geometry_rl_torch.train.cli import parse_overrides
+
+    cfg = load_config(config, parse_overrides(list(overrides)))
+    cfg["collector"]["frames_per_batch"] = REPRO_STEPS * cfg["env"]["num_envs"]
+    cfg["algorithm"]["objective"]["ppo_epochs"] = 1
+    trainer = trainer_from_config(cfg, device=device)
+    state = trainer.init(torch.Generator(device=device).manual_seed(cfg["seed"]))
+    state, metrics = trainer.train_iteration(state)
+    out = {f"metric {k}": v for k, v in metrics.items() if k not in TIMING_KEYS}
+    for part in ("policy", "critic"):
+        out.update({f"{part} {k}": v for k, v in getattr(trainer, part).state_dict().items()})
+    for opt in ("actor_opt", "critic_opt"):
+        for i, entry in getattr(state, opt).state_dict()["state"].items():
+            out.update({f"{opt} {i} {k}": v for k, v in entry.items()})
+    out.update({f"env state {i}": t for i, t in enumerate(all_tensors(state.env_state))})
+    out.update({f"normaliser {i}": t for i, t in enumerate(all_tensors(state.norm))})
+    return out
+
+
+def differing(a: dict, b: dict) -> list:
+    return sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not same_bits(a[k], b[k]))
+
+
+def repro_phase(card: str, rigid_run=None, breakdown=None) -> None:
+    """Phase 35: bit-reproducibility on the card, without PyTorch's
+    deterministic algorithms. Each of REPRO_CONFIGS twice from one seed
+    (`short_run`): every metric, param, Adam state and env state tensor the
+    same. `tools.eval_breakdown` again on phase 10's run: the same report as
+    phase 33's. Then, in one child process (with the CUBLAS_WORKSPACE_CONFIG
+    that PyTorch's deterministic mode demands), cloth and rigid HEPi once
+    without and once with `torch.use_deterministic_algorithms(True,
+    warn_only=True)`: the same bits and no warning, so no op of the path
+    swaps its implementation under the mode, or has no deterministic one.
+    Removes phase 10's run dir."""
+    import torch
+
+    t_phase = time.perf_counter()
+    for config, overrides in REPRO_CONFIGS:
+        t0 = time.perf_counter()
+        first, second = short_run(config, overrides), short_run(config, overrides)
+        diff = differing(first, second)
+        name = config + "".join(f" {o}" for o in overrides)
+        print(f"[repro] {name}: two runs from one seed ({REPRO_STEPS} control steps, one update epoch) in "
+              f"{time.perf_counter() - t0:.2f} s: {len(first)} tensors and metrics, {len(diff)} differ {diff[:6]}; "
+              f"reward {float(first['metric train/reward']):.6g} / {float(second['metric train/reward']):.6g}")
+        if diff:
+            fail(f"two runs of {name} from one seed differ in {diff[:10]}")
+        del first, second
+        torch.cuda.empty_cache()
+    if rigid_run is not None and breakdown is not None:
+        from geometry_rl_torch.tools import eval_breakdown
+
+        t0 = time.perf_counter()
+        again = eval_breakdown.main(["--run-dir", rigid_run, "--checkpoint", "checkpoints", "--episodes", "1",
+                                     "--out", os.path.join(rigid_run, "eval_breakdown_again.json"), "--device", "cuda"])
+        print(f"[repro] tools.eval_breakdown again on {os.path.basename(rigid_run)} ({time.perf_counter() - t0:.2f} s): "
+              f"the same report as phase 33's: {again == breakdown}")
+        if again != breakdown:
+            fail(f"two eval_breakdown reports of one run differ: {breakdown} vs {again}")
+        shutil.rmtree(os.path.dirname(rigid_run))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DET_WORKER], capture_output=True, text=True, cwd=HERE, timeout=900,
+                          env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if proc.returncode != 0:
+        fail(f"the deterministic-mode worker exited {proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    else:
+        result = json.loads(proc.stdout.rsplit("DET ", 1)[1].splitlines()[0])
+        for config, r in result.items():
+            print(f"[repro] {config} without and with torch.use_deterministic_algorithms(True) in one process "
+                  f"({time.perf_counter() - t0:.2f} s for both configs): {r['tensors']} tensors and metrics, "
+                  f"{len(r['differ'])} differ {r['differ'][:6]}; warnings under the mode: {r['warned'] or 'none'}")
+            if r["differ"] or r["warned"]:
+                fail(f"{config} differs under PyTorch's deterministic algorithms: {r}")
+    print(f"[repro] phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+
+
+# phase 35's child: cloth and rigid HEPi without and with PyTorch's
+# deterministic algorithms, in one process
+DET_WORKER = """
+import json, warnings, torch
+import chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = {}
+for config in ("cloth_hanging_multi_hepi_trpl", chip_smoke.RIGID_CONFIG):
+    off = chip_smoke.short_run(config)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            on = chip_smoke.short_run(config)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    warned = sorted({str(w.message)[:300] for w in caught if "determinis" in str(w.message)})
+    out[config] = {"tensors": len(off), "differ": chip_smoke.differing(off, on), "warned": warned}
+print("DET " + json.dumps(out))
+"""
 
 
 def learn_check_phase(card: str, iterations: int = 2) -> dict:
@@ -1435,9 +1705,10 @@ def learn_check_phase(card: str, iterations: int = 2) -> dict:
 
 
 def new_phases(card: str, only=None, rigid_run=None) -> dict:
-    """Phases 28-34 (those in `only`, where given), each printing its
+    """Phases 28-35 (those in `only`, where given), each printing its
     seconds; returns their launch counts. Phase 33 reads phase 10's run
-    (`rigid_run`); without it, it trains one as phase 10 does."""
+    (`rigid_run`); without it, it trains one as phase 10 does. Phase 35
+    makes phase 33's report again, and runs phase 33 for that."""
     t0 = time.perf_counter()
     out = {}
     if not only or 28 in only:
@@ -1452,14 +1723,25 @@ def new_phases(card: str, only=None, rigid_run=None) -> dict:
     t0 = time.perf_counter()
     if not only or 32 in only:
         out["smoke_env"] = smoke_env_phase(card)  # ---- 32. tools.smoke_env on every task
-    if not only or 33 in only:
+    breakdown = None
+    if not only or 33 in only or 35 in only:
         if rigid_run is None:
             rigid_run, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"],
                                        {"cloth_solve": 0, "cloth_solve_env": 0})
-        eval_breakdown_phase(card, rigid_run)  # ---- 33. tools.eval_breakdown at full width
+        breakdown = eval_breakdown_phase(card, rigid_run)  # ---- 33. tools.eval_breakdown at full width
     if not only or 34 in only:
         out["learn_check"] = learn_check_phase(card)  # ---- 34. tools.learn_check through K2's port
     print(f"[new] phases 32-34 took {time.perf_counter() - t0:.2f} s")
+    if only and 15 in only:  # phase 15b alone, on each HEPi family's update in a short run
+        calls = {}
+        for family, config in (("cloth", "cloth_hanging_multi_hepi_trpl"), ("rigid", RIGID_CONFIG), ("rope", ROPE_CONFIG)):
+            with LargestSegmentCall(calls, family):
+                short_run(config)
+        segment_kernel_phase(card, calls)
+    if not only or 35 in only:
+        repro_phase(card, rigid_run, breakdown)  # ---- 35. two runs from one seed give the same bits
+    elif rigid_run is not None:
+        shutil.rmtree(os.path.dirname(rigid_run))
     return out
 
 
@@ -1508,13 +1790,15 @@ def main() -> int:
     for lib in LIBRARIES:
         for kernel, info in BUILD_INFO.get(lib, {}).items():
             print(f"[build] {lib}: {kernel}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
-        main = BUILD_INFO.get(lib, {}).get(MAIN_PATH_KERNELS[lib])
-        if main is None or "registers" not in main:
+        info = BUILD_INFO.get(lib, {})
+        names = main_path_kernels(lib, info)
+        if not names or not all("registers" in info[k] for k in names):
             fail(f"ptxas reported nothing for {MAIN_PATH_KERNELS[lib]}")
-        if main.get("spill_store_bytes", 0) or main.get("spill_load_bytes", 0):
-            fail(f"{MAIN_PATH_KERNELS[lib]} spills registers: {main}")
+        for k in names:
+            if info[k].get("spill_store_bytes", 0) or info[k].get("spill_load_bytes", 0):
+                fail(f"{k} spills registers: {info[k]}")
 
-    if "--new-phases" in sys.argv:  # phases 28-34 alone (or those listed after it), for work on them; no result line
+    if "--new-phases" in sys.argv:  # phases 28-35 alone (or those listed after it), for work on them; no result line
         listed = sys.argv[sys.argv.index("--new-phases") + 1:]
         new_phases(card, {int(p) for p in listed[0].split(",")} if listed and listed[0][0].isdigit() else None)
         return 1 if FAILURES else 0
@@ -1561,6 +1845,7 @@ def main() -> int:
           f"{cfg['algorithm']['num_ori']} orientations, dtype {cfg['algorithm']['dtype']}, "
           f"{trainer.cfg.steps_per_batch} steps per collect")
     LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    reset_segment_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1575,6 +1860,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
     launches = LAUNCHES["cloth_solve"]
+    segment_launches, on_the_spot = segment_counts()
 
     frames = trainer.cfg.steps_per_batch * B
     tensors = {f"batch.{k}": v for k, v in batch._asdict().items() if k != "tobs"}
@@ -1596,17 +1882,21 @@ def main() -> int:
     print(f"[slice] success_rate {success['success_rate'].item():.4f}, mean_final_distance "
           f"{success['mean_final_distance'].item():.4f}, episodes in collect {stats['train/episodes'].item():.0f}; "
           f"cloth_solve launches {launches} (expected {expected})")
+    print(f"[slice] segment_sum launches {segment_launches} (HEPi's message sums), CSRs made on the spot {on_the_spot}")
     if launches != expected or LAUNCHES["cloth_solve_env"] != 0:
         fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
+    if not segment_launches > 0 or on_the_spot:
+        fail(f"the rollout path launched segment_sum {segment_launches} times, made {on_the_spot} CSRs on the spot")
 
     # ---- 5. the slice on a small input against the CPU --------------------
     parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})
 
     # ---- 6. training at full width through the CLI -------------------------
     # K1's port: 2 substeps x (10 warmup steps + one iteration of 100 steps)
+    segment_calls = {}  # each HEPi family's largest segment_sum call in its update, for phase 15b
     run_dir, cloth_launches = train_phase(
         card, "cloth_hanging_multi_hepi_trpl", ["env.kwargs.use_pallas_solver=true", "collector.total_frames=10000"],
-        {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 100)},
+        {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 100)}, record=LargestSegmentCall(segment_calls, "cloth"),
     )
     env_launches = cloth_launches["cloth_solve_env"]
 
@@ -1620,7 +1910,9 @@ def main() -> int:
     parity_phase(card, RIGID_CONFIG, {"body positions": lambda s: s.scene.bodies.pos})
 
     # ---- 10. rigid_insertion training at full width through the CLI -------
-    rigid_run, _ = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"], {"cloth_solve": 0, "cloth_solve_env": 0})
+    rigid_run, rigid_launches = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"],
+                                            {"cloth_solve": 0, "cloth_solve_env": 0},
+                                            record=LargestSegmentCall(segment_calls, "rigid"))
 
     # ---- 11. play on that run (kept for phase 33) -------------------------------
     play_phase(card, rigid_run, keep=True)
@@ -1637,7 +1929,13 @@ def main() -> int:
         parity_phase(card, rope_config, rope_positions)
 
     # ---- 15. rope_closing training at full width through the CLI ------------
-    run_dir, _ = train_phase(card, ROPE_CONFIG, ["collector.total_frames=40000"], {"cloth_solve": 0, "cloth_solve_env": 0})
+    run_dir, rope_launches = train_phase(card, ROPE_CONFIG, ["collector.total_frames=40000"],
+                                         {"cloth_solve": 0, "cloth_solve_env": 0},
+                                         record=LargestSegmentCall(segment_calls, "rope"))
+
+    # ---- 15b. the segment-sum kernel on each family's largest update call -----
+    segment_stats = segment_kernel_phase(card, segment_calls)
+    del segment_calls
 
     # ---- 16. play on that run -------------------------------------------------
     play_phase(card, run_dir, steps=200)
@@ -1726,6 +2024,19 @@ def main() -> int:
          "launches_smoke_env_cloth": new["smoke_env"]["cloth_hanging"][name],
          "launches_learn_check": new["learn_check"][name]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
+    ] + [
+        # no Pallas kernel: the JAX package's one-hot contractions of scatter_sum and gather_nodes, left to XLA
+        {"name": "segment_sum", "route": "cuda", "source": "geometry_rl_torch/csrc/segment_sum.cu",
+         "replaces": "geometry_rl_tpu/models/common.py:76", "launches": segment_launches,
+         "max_abs_err": segment_stats["rigid"][0], "ms": segment_stats["rigid"][1], "plain_ms": segment_stats["rigid"][2],
+         "bound_ms": segment_stats["rigid"][3], "bound_by": segment_stats["rigid"][4],
+         "library_ms": segment_stats["rigid"][5], "library_deterministic_ms": segment_stats["rigid"][6],
+         "shape": segment_stats["rigid"][7], "index_add_sequence_ms": segment_stats["rigid"][8],
+         **{f"{key}_{family}": segment_stats[family][i] for family in ("cloth", "rope")
+            for i, key in ((0, "max_abs_err"), (1, "ms"), (3, "bound_ms"), (5, "library_ms"),
+                           (8, "index_add_sequence_ms"))},
+         "launches_cloth_training": cloth_launches["segment_sum"], "launches_rigid_training": rigid_launches["segment_sum"],
+         "launches_rope_training": rope_launches["segment_sum"]}
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

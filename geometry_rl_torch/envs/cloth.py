@@ -33,6 +33,7 @@ from ..sim.xpbd import (
     ParticleSDFContact,
     ParticleSelfContact,
     ParticleSpec,
+    attachment_sum_order,
     step_physics,
 )
 from ..utils.math import quat_apply, quat_from_euler_xyz, quat_identity, sample_uniform
@@ -294,11 +295,11 @@ class ClothEnv:
         self.particle_spec = ParticleSpec(
             inv_mass=torch.where(self.hole_mask > 0.5, 0.0, inv_m), lin_damping=cfg.cloth_damping
         )
-        self.attachments = BodyAttachment(
+        self.attachments = attachment_sum_order(BodyAttachment(
             particle=self.corner_indices,
             body=torch.arange(G, dtype=torch.int32, device=device),
             local_pos=torch.zeros((G, 3), device=device),
-        )
+        ), N_PARTICLES, self.body_spec.inv_mass.shape[0])
 
         # --- self-collision (optional) ------------------------------------------
         self.self_contacts: Tuple[ParticleSelfContact, ...] = ()

@@ -25,7 +25,7 @@ import torch
 from ..parallel.mesh import Rows, draw_rows
 from ..sim.shapes import PUSHING_SHAPE_NAMES, SHAPE_NAMES, ShapeSet, build_shape_set, ground_sdf, hole_plate_sdf, polygon_sdf_2d
 from ..sim.types import FixedJointSpec, RigidBodySpec, RigidBodyState, SceneState, box_inertia
-from ..sim.xpbd import BodyPairContact, ContactSet, with_bodies, step_physics
+from ..sim.xpbd import BodyPairContact, ContactSet, joint_sum_order, with_bodies, step_physics
 from ..utils.math import (
     quat_apply,
     quat_conjugate,
@@ -260,13 +260,14 @@ class RigidEnv:
     def _build_joints(self) -> FixedJointSpec:
         cfg = self.cfg
         G, dev = cfg.num_grippers, self.device
-        return FixedJointSpec(
+        joints = FixedJointSpec(
             body_a=torch.arange(G, device=dev),
             body_b=torch.full((G,), cfg.object_body, device=dev),
             local_pos_a=torch.stack([lp_g for lp_g, _ in self.anchors]),
             local_pos_b=torch.stack([lp_o for _, lp_o in self.anchors]),
             rel_quat=torch.tensor([[1.0, 0.0, 0.0, 0.0]] * G, device=dev),
         )
+        return joint_sum_order(joints, self.body_spec.inv_mass.shape[0])
 
     def _build_obs_spec(self) -> ObsSpec:
         cfg = self.cfg

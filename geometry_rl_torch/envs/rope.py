@@ -36,7 +36,14 @@ import torch
 from ..parallel.mesh import Rows, draw_rows
 from ..sim.shapes import ground_sdf
 from ..sim.types import ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
-from ..sim.xpbd import BodyAttachment, DistanceGroup, ParticleSDFContact, ParticleSpec, step_physics
+from ..sim.xpbd import (
+    BodyAttachment,
+    DistanceGroup,
+    ParticleSDFContact,
+    ParticleSpec,
+    attachment_sum_order,
+    step_physics,
+)
 from ..utils.math import quat_identity, sample_uniform
 from .base import ObsSpec, TimeStep
 
@@ -266,9 +273,9 @@ class RopeEnv:
             )
             for g in (idx[idx % 2 == 0], idx[idx % 2 == 1])
         )
-        self.attachments = BodyAttachment(
+        self.attachments = attachment_sum_order(BodyAttachment(
             particle=t([0, L - 1], torch.int64), body=t([0, 1], torch.int64), local_pos=torch.zeros((2, 3), device=device)
-        )
+        ), L, self.body_spec.inv_mass.shape[0])
         if cfg.is_shaping:
             if cfg.target_curve_file:
                 curve = load_target_curve(cfg.target_curve_file, L, cfg.rope_length, cfg.rope_z)

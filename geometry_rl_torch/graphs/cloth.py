@@ -14,8 +14,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..envs.base import ObsSpec
+from .homogenize import merged_csr
 from .rigid import apply_training_noise, split_group
-from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet
+from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet, csr_from_index
 
 ONE_HOT = {
     "particles": (1.0, 0.0, 0.0, 0.0),
@@ -63,6 +64,12 @@ class ClothGraphBuilder:
             ("grippers", "agent", "grippers"): _full_pairs(G, G, True, dev),
             ("hole_boundary", "task", "grippers"): _full_pairs(K, G, False, dev),
         }
+        # the CSRs of the static src and dst indices: the order of the models' sums
+        sizes = {"hole_boundary": K, "grippers": G}
+        self._csr = {(s_t, level, d_t): (csr_from_index(src, sizes[s_t]), csr_from_index(dst, sizes[d_t]))
+                     for (s_t, level, d_t), (src, dst) in self._edges.items()}
+        nodes = {"grippers": G, "hole_boundary": K, **({"particles": num_particles} if full_graph_obs else {})}
+        self._merged_csr = merged_csr(nodes, self._edges)
         self._one_hot = {nt: torch.tensor(v, device=dev) for nt, v in ONE_HOT.items()}
 
     @staticmethod
@@ -124,11 +131,14 @@ class ClothGraphBuilder:
 
         edges = {}
         for ek, (src, dst) in self._edges.items():
+            src_csr, dst_csr = self._csr[ek]
             edges[ek] = EdgeSet(
                 src=src.expand(B, -1), dst=dst.expand(B, -1),
                 mask=torch.ones((B, src.shape[0]), dtype=grip_npos.dtype, device=grip_npos.device),
+                dst_csr=dst_csr, src_csr=src_csr,
             )
-        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key)
+        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key,
+                            merged_csr=lambda: self._merged_csr)
         if self.training_noise and noise_generator is not None:
             vectors = apply_training_noise(vectors, noise_generator, self.training_noise_std)
         return graph, GraphFeatures(scalars=one_hot, vectors=vectors)

@@ -1,15 +1,20 @@
 """Hetero -> homogeneous graph merging (port of
 `geometry_rl_tpu/graphs/homogenize.py`) for the EMPN / GCN / MeshGraphNet /
 Transformer baselines and the DeepSets critic. Node types are concatenated in
-`graph.nodes` order; edge indices are offset into the merged node array."""
+`graph.nodes` order; edge indices are offset into the merged node array.
+With `with_csr`, the merged edge set carries the CSRs of its src and dst, the
+order of the message-passing baselines' sums: the graph's `merged_csr`, which
+its builder made once with `merged_csr` below (a graph without them gets them
+on the spot, counted in `ON_THE_SPOT`)."""
 
 from __future__ import annotations
 
+from itertools import accumulate
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from .types import EdgeSet, GraphFeatures, HeteroGraph
+from .types import CSR, EdgeKey, EdgeSet, GraphFeatures, HeteroGraph, csr_from_index, csr_or_on_the_spot
 
 
 class HomogeneousGraph(NamedTuple):
@@ -23,7 +28,7 @@ class HomogeneousGraph(NamedTuple):
         return self.node_slices[graph.output_node_type]
 
 
-def homogenize(graph: HeteroGraph) -> HomogeneousGraph:
+def homogenize(graph: HeteroGraph, with_csr: bool = False) -> HomogeneousGraph:
     offsets: Dict[str, int] = {}
     slices: Dict[str, Tuple[int, int]] = {}
     pos_list, mask_list = [], []
@@ -47,8 +52,29 @@ def homogenize(graph: HeteroGraph) -> HomogeneousGraph:
         oh = torch.zeros(es.src.shape + (num_et,), dtype=pos.dtype, device=pos.device)
         oh.select(-1, ei).fill_(1.0)  # `oh[..., ei] = 1.0` would copy a host scalar to the card
         onehot_list.append(oh)
-    edges = EdgeSet(src=torch.cat(src_list, dim=1), dst=torch.cat(dst_list, dim=1), mask=torch.cat(emask_list, dim=1))
+    src, dst = torch.cat(src_list, dim=1), torch.cat(dst_list, dim=1)
+    edges = EdgeSet(src=src, dst=dst, mask=torch.cat(emask_list, dim=1))
+    if with_csr:
+        src_csr, dst_csr = graph.merged_csr() if graph.merged_csr is not None else (None, None)
+        edges = edges._replace(src_csr=csr_or_on_the_spot(src_csr, src, offset),
+                               dst_csr=csr_or_on_the_spot(dst_csr, dst, offset))
     return HomogeneousGraph(pos, node_mask, edges, torch.cat(onehot_list, dim=1), slices)
+
+
+def merged_csr(num_nodes: Dict[str, int], edges: Dict[EdgeKey, Tuple[torch.Tensor, torch.Tensor]]) -> Tuple[CSR, CSR]:
+    """The CSRs (src, dst) of a topology's merged edge set, for a builder to
+    make once: `num_nodes` and `edges` ((src, dst) per edge key) in the
+    order of the graphs it builds. An index [E] serves every env, [B, E] is
+    each env's own; with any of the latter, the CSRs are each env's."""
+    starts = dict(zip(num_nodes, accumulate(num_nodes.values(), initial=0)))
+    B = max((s.shape[0] for s, _ in edges.values() if s.ndim == 2), default=1)
+
+    def merged(side: int) -> torch.Tensor:
+        parts = [pair[side] + starts[key[2 * side]] for key, pair in edges.items()]
+        return torch.cat([p.expand(B, -1) if p.ndim == 1 else p for p in parts], dim=1)
+
+    n = sum(num_nodes.values())
+    return csr_from_index(merged(0), n), csr_from_index(merged(1), n)
 
 
 def concat_features(graph: HeteroGraph, feats: GraphFeatures) -> torch.Tensor:

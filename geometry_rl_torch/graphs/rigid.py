@@ -26,7 +26,8 @@ import torch
 
 from ..envs.base import ObsSpec
 from ..parallel.mesh import RowGenerator, draw_rows
-from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet
+from .homogenize import merged_csr
+from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet, csr_from_index
 
 NODE_TYPES = ("object_geometry", "grippers", "target_geometry")  # one-hot order
 
@@ -121,6 +122,16 @@ class RigidGraphBuilder:
         pairs = [(i, j) for i in range(G) for j in range(G) if i != j]
         self._agent = (torch.tensor([p[0] for p in pairs], device=dev), torch.tensor([p[1] for p in pairs], device=dev))
         self._task = (torch.arange(P, device=dev).repeat(G), torch.arange(G, device=dev).repeat_interleave(P))
+        # the CSRs of every src and dst index, the order of the models' sums: the
+        # kNN topology's per env (each env's shape), the others' shared
+        self._internal_csr = (csr_from_index(internal_src, P), csr_from_index(internal_dst, P))
+        self._agent_csr = (csr_from_index(self._agent[0], G), csr_from_index(self._agent[1], G))
+        self._task_csr = (csr_from_index(self._task[0], P), csr_from_index(self._task[1], G))
+        topology = {("object_geometry", "internal", "object_geometry"): (internal_src, internal_dst)}
+        if G > 1:
+            topology[("grippers", "agent", "grippers")] = self._agent
+        topology[("object_geometry", "task", "grippers")] = self._task
+        self._merged_csr = merged_csr({"object_geometry": P, "grippers": G}, topology)  # build()'s graph order
         self._one_hot = {nt: torch.eye(len(NODE_TYPES), device=dev)[i] for i, nt in enumerate(NODE_TYPES)}
 
     @staticmethod
@@ -160,11 +171,15 @@ class RigidGraphBuilder:
         B = tobs["position_vectors"].shape[0]
         G, P = self.num_grippers, self.num_points
 
+        i_src_csr, i_dst_csr = self._internal_csr
         if env_ids is None:
             i_src, i_dst, i_mask, p_mask = self.internal_src, self.internal_dst, self.internal_mask, self.point_mask
+            merged = lambda: self._merged_csr  # noqa: E731
         else:
             i_src, i_dst = self.internal_src[env_ids], self.internal_dst[env_ids]
             i_mask, p_mask = self.internal_mask[env_ids], self.point_mask[env_ids]
+            i_src_csr, i_dst_csr = i_src_csr.select(env_ids), i_dst_csr.select(env_ids)
+            merged = lambda: tuple(csr.select(env_ids) for csr in self._merged_csr)  # noqa: E731  (on demand)
 
         pos = split_group(tobs["position_vectors"], spec, "position_vectors")
         npos = split_group(tobs["norm_position_vectors"], spec, "position_vectors")
@@ -177,16 +192,19 @@ class RigidGraphBuilder:
             "object_geometry": NodeSet(pos=pos["object_geometry"].reshape(B, P, 3), norm_pos=obj_npos, mask=p_mask),
             "grippers": NodeSet(pos=pos["grippers"].reshape(B, G, 3), norm_pos=grip_npos),
         }
-        edges = {("object_geometry", "internal", "object_geometry"): EdgeSet(src=i_src, dst=i_dst, mask=i_mask)}
+        edges = {("object_geometry", "internal", "object_geometry"): EdgeSet(
+            src=i_src, dst=i_dst, mask=i_mask, dst_csr=i_dst_csr, src_csr=i_src_csr)}
         if G > 1:
             a_src, a_dst = self._agent
             edges[("grippers", "agent", "grippers")] = EdgeSet(
-                src=a_src.expand(B, -1), dst=a_dst.expand(B, -1), mask=torch.ones((B, a_src.shape[0]), device=p_mask.device)
+                src=a_src.expand(B, -1), dst=a_dst.expand(B, -1), mask=torch.ones((B, a_src.shape[0]), device=p_mask.device),
+                dst_csr=self._agent_csr[1], src_csr=self._agent_csr[0],
             )
         t_src, t_dst = self._task
         edges[("object_geometry", "task", "grippers")] = EdgeSet(src=t_src.expand(B, -1), dst=t_dst.expand(B, -1),
-                                                                 mask=p_mask.repeat(1, G))
-        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key)
+                                                                 mask=p_mask.repeat(1, G), dst_csr=self._task_csr[1],
+                                                                 src_csr=self._task_csr[0])
+        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key, merged_csr=merged)
 
         # features
         one_hot = {"object_geometry": self._one_hot["object_geometry"].expand(B, P, 3),

@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 from ..envs.base import ObsSpec
+from .homogenize import merged_csr
 from .rigid import apply_training_noise, split_group
-from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet
+from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet, csr_from_index
 
 NODE_TYPES = ("links", "grippers", "target_geometry")  # one-hot order
 
@@ -70,6 +71,11 @@ class RopeGraphBuilder:
             ("links", "task", "grippers"): (torch.arange(L, device=dev).repeat(G),
                                             torch.arange(G, device=dev).repeat_interleave(L)),
         }
+        # the CSRs of the static src and dst indices: the order of the models' sums
+        sizes = {"links": L, "grippers": G}
+        self._csr = {(s_t, level, d_t): (csr_from_index(src, sizes[s_t]), csr_from_index(dst, sizes[d_t]))
+                     for (s_t, level, d_t), (src, dst) in self._edges.items()}
+        self._merged_csr = merged_csr({"links": L, "grippers": G, "target_geometry": L}, self._edges)
         self._one_hot = {nt: torch.eye(len(NODE_TYPES), device=dev)[i] for i, nt in enumerate(NODE_TYPES)}
 
     @staticmethod
@@ -117,10 +123,12 @@ class RopeGraphBuilder:
         }
         edges = {
             ek: EdgeSet(src=src.expand(B, -1), dst=dst.expand(B, -1),
-                        mask=torch.ones((B, src.shape[0]), dtype=grip_npos.dtype, device=grip_npos.device))
+                        mask=torch.ones((B, src.shape[0]), dtype=grip_npos.dtype, device=grip_npos.device),
+                        dst_csr=self._csr[ek][1], src_csr=self._csr[ek][0])
             for ek, (src, dst) in self._edges.items()
         }
-        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key)
+        graph = HeteroGraph(nodes=nodes, edges=edges, output_node_type=self.output_mask_key,
+                            merged_csr=lambda: self._merged_csr)
 
         one_hot = {nt: self._one_hot[nt].expand(B, ns.num_nodes, len(NODE_TYPES)) for nt, ns in nodes.items()}
         corr_links = link_npos - tgt_npos if self.dist_as_pos else tgt_npos

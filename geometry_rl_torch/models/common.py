@@ -5,9 +5,10 @@ activations are computed in the module's `dtype`; Dense kernels start
 LeCun-normal (truncated) with zero bias, or orthogonal for output heads;
 LayerNorm uses eps 1e-6 and computes its statistics in float32.
 
-Gathers and scatters use `index_select` / `index_add_` over a flattened
-(env, node) axis. The reference's one-hot-matmul lowering is a TPU layout
-choice and is not carried over.
+Gathers use `index_select` over a flattened (env, node) axis. Every sum of
+graph messages (a scatter, a gather's backward) is `models/segment.py`'s
+segment sum in the order of the edge set's CSR: the fixed order that the
+reference's one-hot contractions have, without their [E, N] one-hot matrix.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..graphs.types import CSR
+from .segment import csr_or_on_the_spot, segment_sum
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -145,31 +149,79 @@ def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx + offs).reshape(-1)
 
 
-def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched node gather: x [B, N, ...], idx [B, E] int -> [B, E, ...]."""
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...], idx [B, E] -> [B, E, ...] (a gather: no sum)."""
     B, N = x.shape[:2]
     out = x.reshape((B * N,) + x.shape[2:]).index_select(0, _flat_index(idx, N))
     return out.reshape(idx.shape + x.shape[2:])
 
 
-def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """Batched scatter-add: messages [B, E, ...], dst [B, E] -> [B, N, ...].
-    bf16/f16 messages are summed in f32 and the sum rounded once, as the
-    reference's one-hot contraction accumulates."""
-    B, E = dst.shape
-    tail = messages.shape[2:]
-    acc = torch.float32 if messages.dtype in (torch.bfloat16, torch.float16) else messages.dtype
-    out = torch.zeros((B * num_nodes,) + tail, dtype=acc, device=messages.device)
-    out.index_add_(0, _flat_index(dst, num_nodes), messages.reshape((B * E,) + tail).to(acc))
-    return out.reshape((B, num_nodes) + tail).to(messages.dtype)
+def _segment_sum(values: torch.Tensor, idx: torch.Tensor, n: int, csr: Optional[CSR]) -> torch.Tensor:
+    """values [B, E, ...] summed by idx [B, E] into [B, n, ...] in the CSR's order."""
+    B, E = idx.shape
+    tail = values.shape[2:]
+    out = segment_sum(values.reshape(B, E, -1), csr_or_on_the_spot(csr, idx, n))
+    return out.reshape((B, n) + tail)
 
 
-def scatter_mean(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int, mask: Optional[torch.Tensor] = None):
+class _GatherNodes(torch.autograd.Function):
+    """Forward a gather; backward the segment sum of the gradient over the
+    CSR of the gather's index (made on the spot if the caller has none)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, csr):
+        ctx.save_for_backward(idx)
+        ctx.num_nodes, ctx.csr = x.shape[1], csr
+        return _take(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return _segment_sum(grad, idx, ctx.num_nodes, ctx.csr), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Forward the segment sum over the CSR of `dst`; backward a gather of
+    the gradient by `dst`."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, num_nodes, csr):
+        ctx.save_for_backward(dst)
+        return _segment_sum(messages, dst, num_nodes, csr)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dst,) = ctx.saved_tensors
+        return _take(grad, dst), None, None, None
+
+
+def gather_nodes(x: torch.Tensor, idx: torch.Tensor, csr: Optional[CSR] = None) -> torch.Tensor:
+    """Batched node gather: x [B, N, ...], idx [B, E] int -> [B, E, ...].
+    `csr` (of idx into N nodes) orders the backward's sum. Without a
+    gradient to take (the collect, node positions) the autograd function's
+    host time is skipped: the forward is the same gather."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherNodes.apply(x, idx, csr)
+    return _take(x, idx)
+
+
+def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int, csr: Optional[CSR] = None) -> torch.Tensor:
+    """Batched scatter-add: messages [B, E, ...], dst [B, E] -> [B, N, ...],
+    summed in the order of `csr` (of dst into N nodes). bf16/f16 messages are
+    summed in f32 and the sum rounded once, as the reference's one-hot
+    contraction accumulates."""
+    if torch.is_grad_enabled() and messages.requires_grad:
+        return _ScatterSum.apply(messages, dst, num_nodes, csr)
+    return _segment_sum(messages, dst, num_nodes, csr)
+
+
+def scatter_mean(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int, mask: Optional[torch.Tensor] = None,
+                 csr: Optional[CSR] = None):
     if mask is not None:
         messages = messages * mask.reshape(mask.shape + (1,) * (messages.ndim - mask.ndim))
         weights = mask
     else:
         weights = torch.ones(dst.shape, dtype=messages.dtype, device=messages.device)
-    total = scatter_sum(messages, dst, num_nodes)
-    counts = torch.clamp(scatter_sum(weights, dst, num_nodes), min=1.0)
+    total = scatter_sum(messages, dst, num_nodes, csr)
+    counts = torch.clamp(scatter_sum(weights, dst, num_nodes, csr), min=1.0)
     return total / counts.reshape(counts.shape + (1,) * (total.ndim - 2))

@@ -38,9 +38,10 @@ class ProcessorLayer(nn.Module):
         self.dense_1 = Dense(channels, channels, **kw)
         self.layer_norm_0 = LayerNorm(channels, **kw)
 
-    def forward(self, x, src, dst, edge_mask, edge_attr):
+    def forward(self, x, src, dst, edge_mask, edge_attr, src_csr=None, dst_csr=None):
         x = x.to(self.dtype)
-        agg = scatter_sum(gather_nodes(x, src) * edge_attr * edge_mask[..., None].to(self.dtype), dst, x.shape[1])
+        messages = gather_nodes(x, src, src_csr) * edge_attr * edge_mask[..., None].to(self.dtype)
+        agg = scatter_sum(messages, dst, x.shape[1], dst_csr)
         h = self.dense_1(F.relu(self.dense_0(torch.cat([x, agg], dim=-1))))
         return x + self.layer_norm_0(h)
 
@@ -61,12 +62,13 @@ class GCN(nn.Module):
         self.mlp = Dense(hidden_dim * (2 if concat_global else 1), output_dim, device=device)  # f32
 
     def forward(self, graph: HeteroGraph, feats: GraphFeatures) -> Tuple[torch.Tensor, torch.Tensor]:
-        homo = homogenize(graph)
+        homo = homogenize(graph, with_csr=True)
         x = self.node_lin(concat_features(graph, feats))
         e = self.dense_2(F.relu(self.dense_1(F.relu(self.dense_0(edge_attributes(homo))))))
         e = self.layer_norm_0(e)
         for i in range(self.num_layers):
-            x = getattr(self, f"conv_{i}")(x, homo.edges.src, homo.edges.dst, homo.edges.mask, e)
+            x = getattr(self, f"conv_{i}")(x, homo.edges.src, homo.edges.dst, homo.edges.mask, e,
+                                           homo.edges.src_csr, homo.edges.dst_csr)
         x = x.float()
 
         start, stop = homo.output_slice(graph)

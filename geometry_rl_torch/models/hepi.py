@@ -96,7 +96,8 @@ class HEPi(nn.Module):
                 if level not in self.edge_levels or self.message_codes[self.edge_levels.index(level)][k] != 1:
                     continue
                 conv = getattr(self, f"processor_{k}_{level}")
-                updated = conv(latent[src], latent[dst], es.src, es.dst, es.mask, kernel_basis[ek], fiber_basis)
+                updated = conv(latent[src], latent[dst], es.src, es.dst, es.mask, kernel_basis[ek], fiber_basis,
+                               es.src_csr, es.dst_csr)
                 out_dst.setdefault(dst, []).append(updated)
             for dst, vals in out_dst.items():
                 latent[dst] = sum(vals) if len(vals) > 1 else vals[0]

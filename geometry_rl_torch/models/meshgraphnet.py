@@ -51,9 +51,9 @@ class EdgeProcessorLayer(_TwoMLPs):
     def __init__(self, channels: int, dtype=torch.float32, device=None):
         super().__init__(3 * channels, 2 * channels, channels, dtype=dtype, device=device)
 
-    def forward(self, x, e, src, dst, edge_mask):
-        e_new = e + self.first(torch.cat([gather_nodes(x, dst), gather_nodes(x, src), e], dim=-1))
-        agg = scatter_sum(e_new * edge_mask[..., None].to(e_new.dtype), dst, x.shape[1])
+    def forward(self, x, e, src, dst, edge_mask, src_csr=None, dst_csr=None):
+        e_new = e + self.first(torch.cat([gather_nodes(x, dst, dst_csr), gather_nodes(x, src, src_csr), e], dim=-1))
+        agg = scatter_sum(e_new * edge_mask[..., None].to(e_new.dtype), dst, x.shape[1], dst_csr)
         return x + self.second(torch.cat([x, agg], dim=-1)), e_new
 
 
@@ -69,11 +69,12 @@ class MeshGraphNet(_TwoMLPs):
         self.decoder = Dense(hidden_dim, output_dim, device=device)  # f32
 
     def forward(self, graph: HeteroGraph, feats: GraphFeatures) -> Tuple[torch.Tensor, torch.Tensor]:
-        homo = homogenize(graph)
+        homo = homogenize(graph, with_csr=True)
         x = self.first(concat_features(graph, feats).to(self.dtype))
         e = self.second(edge_attributes(homo).to(self.dtype))
         for i in range(self.num_layers):
-            x, e = getattr(self, f"processor_{i}")(x, e, homo.edges.src, homo.edges.dst, homo.edges.mask)
+            x, e = getattr(self, f"processor_{i}")(x, e, homo.edges.src, homo.edges.dst, homo.edges.mask,
+                                                  homo.edges.src_csr, homo.edges.dst_csr)
         start, stop = homo.output_slice(graph)
         h = x.float()[:, start:stop]
         return self.decoder(h), h

@@ -80,10 +80,11 @@ class PolynomialBasis(nn.Module):
         return gelu(self.dense_1(gelu(self.dense_0(x))))
 
 
-def _spatial_conv(x_src, src, dst, edge_mask, num_dst: int, kernel, dt) -> torch.Tensor:
-    """Messages kernel_e * x_src[src_e], masked, scatter-added at dst: [B,Nd,O,C]."""
-    messages = kernel * gather_nodes(x_src, src) * edge_mask[..., None, None].to(dt)  # [B,E,O,C]
-    return scatter_sum(messages, dst, num_dst)
+def _spatial_conv(x_src, src, dst, edge_mask, num_dst: int, kernel, dt, src_csr=None, dst_csr=None) -> torch.Tensor:
+    """Messages kernel_e * x_src[src_e], masked, scatter-added at dst: [B,Nd,O,C].
+    The CSRs of src and dst (`EdgeSet.src_csr` / `dst_csr`) order the sums."""
+    messages = kernel * gather_nodes(x_src, src, src_csr) * edge_mask[..., None, None].to(dt)  # [B,E,O,C]
+    return scatter_sum(messages, dst, num_dst, dst_csr)
 
 
 def _depthwise_fiber_conv(x_1: torch.Tensor, fiber_kernel: torch.Tensor) -> torch.Tensor:
@@ -124,10 +125,10 @@ class FiberBundleConv(nn.Module):
         self.dense_1 = Dense(channels * widening_factor, channels, dtype=dtype, device=device)
         self.calib_stats: Optional[List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]] = None
 
-    def forward(self, x_src, x_dst, src, dst, edge_mask, kernel_basis, fiber_basis):
+    def forward(self, x_src, x_dst, src, dst, edge_mask, kernel_basis, fiber_basis, src_csr=None, dst_csr=None):
         dt = self.dtype
         x_src, x_dst = x_src.to(dt), x_dst.to(dt)
-        x_1 = _spatial_conv(x_src, src, dst, edge_mask, x_dst.shape[1], self.kernel(kernel_basis), dt)
+        x_1 = _spatial_conv(x_src, src, dst, edge_mask, x_dst.shape[1], self.kernel(kernel_basis), dt, src_csr, dst_csr)
         fiber_kernel = self.fiber_kernel(fiber_basis)  # [O,O,C], or [O,O,C*C]
         if self.depthwise:
             x_2 = _depthwise_fiber_conv(x_1, fiber_kernel)
@@ -168,10 +169,10 @@ class SeparableFiberBundleConvNext(nn.Module):
         if self.layer_scale_init is not None:
             nn.init.constant_(self.layer_scale, self.layer_scale_init)
 
-    def forward(self, x, src, dst, edge_mask, kernel_basis, fiber_basis):
+    def forward(self, x, src, dst, edge_mask, kernel_basis, fiber_basis, src_csr=None, dst_csr=None):
         dt = self.dtype
         x = x.to(dt)
-        x_1 = _spatial_conv(x, src, dst, edge_mask, x.shape[1], self.kernel(kernel_basis), dt)
+        x_1 = _spatial_conv(x, src, dst, edge_mask, x.shape[1], self.kernel(kernel_basis), dt, src_csr, dst_csr)
         x_2 = _depthwise_fiber_conv(x_1, self.fiber_kernel(fiber_basis))
         if self.calib_stats is not None:
             self.calib_stats.append((_std(x), _std(x_1), _std(x_2)))

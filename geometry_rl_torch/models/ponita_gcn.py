@@ -65,7 +65,7 @@ class PonitaGCN(nn.Module):
     def forward(self, graph: HeteroGraph, feats: GraphFeatures, ori_grid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         if ori_grid is None:
             ori_grid = self.ori_grid
-        homo = homogenize(graph)
+        homo = homogenize(graph, with_csr=True)
 
         # merged sphere-lifted inputs
         xs = []
@@ -82,7 +82,8 @@ class PonitaGCN(nn.Module):
         fiber_basis = self.fiber_basis_fn(ori_inv)
 
         for i in range(self.num_layers):
-            x = getattr(self, f"interaction_{i}")(x, homo.edges.src, homo.edges.dst, homo.edges.mask, kernel_basis, fiber_basis)
+            x = getattr(self, f"interaction_{i}")(x, homo.edges.src, homo.edges.dst, homo.edges.mask, kernel_basis, fiber_basis,
+                                                   homo.edges.src_csr, homo.edges.dst_csr)
 
         # read out in f32 at the output node slice (the readout is per node,
         # so slicing first gives the same values as slicing after)

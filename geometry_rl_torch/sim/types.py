@@ -54,6 +54,9 @@ class FixedJointSpec(NamedTuple):
     local_pos_a: torch.Tensor  # [NJ, 3]
     local_pos_b: torch.Tensor  # [NJ, 3]
     rel_quat: torch.Tensor  # [NJ, 4] or [B, NJ, 4]
+    # the static sums into bodies (`sim/xpbd.joint_sum_order`; made on the spot if None):
+    sum_order: Optional[torch.Tensor] = None  # [NB, D] rows of [a-side; b-side; a zero row]
+    inv_count: Optional[torch.Tensor] = None  # [2 NJ + 1] each row's 1/K (the zero row's 1)
 
 
 def axis_mask_from_bits(bits: int, device=None) -> torch.Tensor:

@@ -18,7 +18,10 @@ kernel in `sim/cloth_solve.py`.
 Every function is a chain of tensor operations with no host
 synchronisation, so a rollout on the card stays asynchronous. Body indices
 of contacts are Python ints; joint, constraint and attachment indices are
-device tensors, and their corrections are summed with `index_add`.
+device tensors. A conflict-free distance group writes each particle once
+with `index_add`; the joints' and attachments' corrections, where a body
+may take several, are summed in a fixed order made once with the scene
+(`sum_order`, `ordered_sum`), so a run gives the same bits every time.
 Restitution, dynamic friction and the particles' damping are Python floats:
 a zero skips its branch before any tensor is made.
 """
@@ -118,11 +121,76 @@ class ParticleSelfContact(NamedTuple):
 
 
 class BodyAttachment(NamedTuple):
-    """Pin particles to body-local points (cloth corner <-> gripper cube)."""
+    """Pin particles to body-local points (cloth corner <-> gripper cube).
+    `particle_order` / `body_order` are the fixed orders of the sums into
+    particles and bodies (`attachment_sum_order`; made on the spot if None)."""
 
     particle: torch.Tensor  # [A] int
     body: torch.Tensor  # [A] int
     local_pos: torch.Tensor  # [A, 3] or [B, A, 3]
+    particle_order: Optional[torch.Tensor] = None  # [NP, D] `sum_order(particle, NP)`
+    body_order: Optional[torch.Tensor] = None  # [NB, D] `sum_order(body, NB)`
+
+
+# ---------------------------------------------------------------------------
+# fixed-order sums by a static index
+# ---------------------------------------------------------------------------
+
+
+def sum_order(index: torch.Tensor, n: int) -> torch.Tensor:
+    """The fixed order of a sum of K rows by a static index [K] into n
+    targets: [n, D] row numbers, each target's rows in increasing order, its
+    other slots K (the zero row after the rows, `with_zero_row`). D is the
+    most rows one target takes, at least 1. Reads the index on the host: it
+    is made once, with the scene."""
+    idx = index.tolist()
+    rows = [[k for k, i in enumerate(idx) if i == t] for t in range(n)]
+    depth = max([1] + [len(r) for r in rows])
+    return torch.tensor([r + [len(idx)] * (depth - len(r)) for r in rows], dtype=torch.int64, device=index.device)
+
+
+def with_zero_row(*parts: torch.Tensor) -> torch.Tensor:
+    """The [B, K_i, F] rows of `parts` and a zero row after them: [B, sum K_i + 1, F]."""
+    p = parts[0]
+    return torch.cat([*parts, p.new_zeros((p.shape[0], 1, p.shape[2]))], dim=1)
+
+
+def ordered_sum(rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """rows [B, K + 1, F] (the last a zero row) summed per target in
+    `order` [n, D] (`sum_order`): [B, n, F], each target's rows added one
+    after the other, the same bits on every run and device."""
+    n, depth = order.shape
+    g = rows.index_select(1, order.reshape(-1)).reshape(rows.shape[0], n, depth, rows.shape[2])
+    out = g[:, :, 0]
+    for d in range(1, depth):
+        out = out + g[:, :, d]
+    return out
+
+
+def joint_sum_order(joints: FixedJointSpec, num_bodies: int) -> FixedJointSpec:
+    """`joints` with its static sums made: the order of the sum into each
+    body over the rows [a-side corrections; b-side corrections], and each
+    row's 1/K, K the number of joints at its body (Jacobi averaging), with a
+    1 for the zero row."""
+    both = torch.cat([joints.body_a, joints.body_b])
+    order = sum_order(both, num_bodies)
+    count = (order < len(both)).sum(dim=1).to(joints.local_pos_a.dtype)
+    inv_count = 1.0 / torch.clamp(count, min=1.0)
+    return joints._replace(sum_order=order, inv_count=torch.cat([inv_count[both], inv_count.new_ones(1)]))
+
+
+def attachment_sum_order(att: BodyAttachment, num_particles: int, num_bodies: int) -> BodyAttachment:
+    """`att` with the orders of its sums into particles and bodies made."""
+    return att._replace(particle_order=sum_order(att.particle, num_particles), body_order=sum_order(att.body, num_bodies))
+
+
+def _no_order_on_card(spec, x: torch.Tensor, maker: str) -> None:
+    """A spec without its sum order gets one made in the solver, from its
+    index read on the host: for CPU tensors only (specs made by hand). On the
+    card that read would stall every substep, so a scene makes the order
+    once with `maker` and a spec without it raises."""
+    if x.device.type != "cpu":
+        raise ValueError(f"{type(spec).__name__} on {x.device} has no sum order: make it once with the scene ({maker})")
 
 
 # ---------------------------------------------------------------------------
@@ -204,20 +272,18 @@ def _solve_fixed_joints(pos, quat, spec: RigidBodySpec, joints: FixedJointSpec, 
     anchor from the welded orientations. Each joint's correction is computed
     as if it acted alone and summed onto its bodies, scaled by 1/K for a body
     shared by K joints (Jacobi averaging: the two-agent scenes weld two
-    grippers to one object and diverge without it; K = 1 elsewhere)."""
-    B, NB = pos.shape[:2]
+    grippers to one object and diverge without it; K = 1 elsewhere). The
+    sums into bodies follow `joints.sum_order` (`joint_sum_order`)."""
+    if joints.sum_order is None:
+        _no_order_on_card(joints, pos, "joint_sum_order")
+        joints = joint_sum_order(joints, pos.shape[1])
     ia, ib = joints.body_a, joints.body_b  # [NJ]
     im_a, ii_a = spec.inv_mass[ia], spec.inv_inertia[ia]
     im_b, ii_b = spec.inv_mass[ib], spec.inv_inertia[ib]
-
-    ones = torch.ones(ia.shape, dtype=pos.dtype, device=pos.device)
-    joint_count = torch.zeros(NB, dtype=pos.dtype, device=pos.device).index_add_(0, ia, ones).index_add_(0, ib, ones)
-    inv_count = 1.0 / torch.clamp(joint_count, min=1.0)
-    inv_count_a, inv_count_b = inv_count[ia][None, :, None], inv_count[ib][None, :, None]
+    weights = joints.inv_count[None, :, None]
 
     def scatter(vals_a, vals_b):
-        out = torch.zeros((B, NB, vals_a.shape[-1]), dtype=vals_a.dtype, device=vals_a.device)
-        return out.index_add_(1, ia, vals_a * inv_count_a).index_add_(1, ib, vals_b * inv_count_b)
+        return ordered_sum(with_zero_row(vals_a, vals_b) * weights, joints.sum_order)
 
     # --- stage 1: orientation weld (drive q_b -> q_a * rel_quat) ----------
     qa, qb = quat[:, ia], quat[:, ib]
@@ -376,8 +442,12 @@ def _solve_self_contacts(x, inv_mass, sc: ParticleSelfContact):
 
 def _solve_attachments(x, inv_mass, pos, quat, spec: RigidBodySpec, att: BodyAttachment):
     """Particle <-> body pins, two-way: the particle and the body both move,
-    by their generalised inverse masses. The bodies' corrections are summed
-    with `index_add`, so a body that holds several attachments gets them all."""
+    by their generalised inverse masses. The corrections are summed per
+    particle and per body in the attachments' fixed orders, so a body that
+    holds several attachments gets them all."""
+    if att.particle_order is None or att.body_order is None:
+        _no_order_on_card(att, x, "attachment_sum_order")
+        att = attachment_sum_order(att, x.shape[1], pos.shape[1])
     ap, ab = att.particle, att.body
     lp = att.local_pos if att.local_pos.ndim == 3 else att.local_pos[None]
     qb, pb = quat[:, ab], pos[:, ab]
@@ -394,13 +464,13 @@ def _solve_attachments(x, inv_mass, pos, quat, spec: RigidBodySpec, att: BodyAtt
     wb = _generalized_inv_mass(qb, im_b, ii_b, r, n)
     lam = -c_norm.squeeze(-1) / torch.clamp(wp + wb, min=1e-12)
     dx = lam[..., None] * n
-    x = x.index_add(1, ap, dx * wp[..., None])
+    x = x + ordered_sum(with_zero_row(dx * wp[..., None]), att.particle_order)
 
     p_imp = -dx
-    pos = pos.index_add(1, ab, p_imp * im_b[..., None] * spec.free_pos[ab])
+    dpos_j = p_imp * im_b[..., None] * spec.free_pos[ab]
     dw_j = _inv_inertia_world(qb, ii_b, torch.linalg.cross(r, p_imp, dim=-1)) * spec.free_rot[ab]
-    dw = torch.zeros_like(pos).index_add_(1, ab, dw_j)
-    return x, pos, _rotate_by(quat, dw)
+    d = ordered_sum(with_zero_row(torch.cat([dpos_j, dw_j], dim=-1)), att.body_order)  # [B, NB, 6]
+    return x, pos + d[..., :3], _rotate_by(quat, d[..., 3:])
 
 
 def _solve_particle_contact(x, prev_x, pc: ParticleSDFContact):

@@ -18,9 +18,15 @@ then prints:
     their projection and bisection parts count 0;
   - with `algorithm.objective.papi_steps=true`, PAPI's post-update steps as
     a part of their own: ms, device kernels and peak device memory of one
-    call on a collected batch (`papi_window`).
-`update_window(trainer, state, n)` is the window alone, for callers that
-have a trainer and a collected state already.
+    call on a collected batch (`papi_window`);
+  - under `torch.profiler`, on a trainer whose collect is `COLLECT_STEPS` (2)
+    control steps long (after a warm-up collect): device kernels per control
+    step, the device's busy and idle share, the device and host time under
+    the env step, the policy and the critic, and the ops and kernels with
+    the most device time (`collect_window`).
+Both windows also count the port's own kernels per step (`PORT_KERNELS`,
+by name). `update_window(trainer, state, n)` and `collect_window(trainer,
+state, steps)` are the windows alone, for callers that have a trainer.
 It needs a card and raises without one.
 """
 
@@ -36,6 +42,10 @@ import torch
 # `_optimizer_step` less the optimizers' own `step` ("adam"), "loss" is
 # `_minibatch_loss` less its forwards and its projection
 PARTS = ("forward", "projection", "loss", "backward", "clip", "adam", "other")
+# the length of the profiled collect, in control steps
+COLLECT_STEPS = 2
+# the device functions of `csrc/`, counted by name in each window
+PORT_KERNELS = ("cloth_solve_kernel", "cloth_solve_env_kernel", "segment_sum_kernel")
 
 
 class _RangedProjection:
@@ -58,6 +68,74 @@ def _ranged(fn, label):
             return fn(*args, **kwargs)
 
     return ranged
+
+
+def _device_kernels(events, annotations):
+    """The device kernels among profiler `events`, less the ranges that
+    `record_function` and the optimizers' step annotation mirror onto the
+    device timeline."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in annotations
+            and not e.name.startswith("Optimizer.")]
+
+
+def _port_kernels(kernels, steps: int, tag: str, per: str) -> Dict[str, float]:
+    counts = {k: sum(1 for e in kernels if k in e.name) / steps for k in PORT_KERNELS}
+    print(f"[profile] {tag}the port's kernels per {per}: " + ", ".join(f"{k} {v:g}" for k, v in counts.items()))
+    return counts
+
+
+def collect_window(trainer, state, steps: int, tag: str = "") -> Dict[str, float]:
+    """Profile one collect of `trainer` (whose batch must be `steps` control
+    steps) after a warm-up collect from `state`. Prints the report and
+    returns its headline numbers."""
+    state, _, _ = trainer._collect(state)  # warm-up
+    torch.cuda.synchronize()
+    ranges = {"env.step": (trainer.env, "step"), "policy": (trainer, "_policy_dist"), "critic": (trainer, "_value")}
+    for label, (obj, attr) in ranges.items():
+        setattr(obj, attr, _ranged(getattr(obj, attr), label))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            trainer._collect(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for obj, attr in ranges.values():
+            delattr(obj, attr)
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)}
+    kernels = _device_kernels(events, annotations | set(ranges))
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    idle = 100 - 100 * busy_ms / 1e3 / wall
+    print(f"[profile] {tag}collect, {trainer.num_envs} envs, {steps} control steps after a warm-up: "
+          f"{1e3 * wall:.1f} ms wall, {len(kernels) / steps:.0f} device kernels per control step, device busy "
+          f"{busy_ms:.1f} ms, idle {idle:.1f}% of the wall")
+    for label in ranges:
+        spans = [e for e in events if e.name == label and e.device_type == cpu]
+        dev_ms = sum(e.device_time_total for e in spans) / 1e3
+        host_ms = sum(e.time_range.elapsed_us() for e in spans) / 1e3
+        print(f"[profile] {tag}  {label}: {len(spans) // steps} calls per control step, {dev_ms:.2f} ms of device "
+              f"time ({100 * dev_ms / max(busy_ms, 1e-9):.1f}% of busy), {host_ms:.1f} ms of host time")
+
+    def self_device_us(avg):
+        return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0.0)
+    ops = sorted((a for a in prof.key_averages() if a.device_type == cpu and a.key not in annotations | set(ranges)),
+                 key=lambda a: -self_device_us(a))
+    for a in ops[:5]:
+        print(f"[profile] {tag}  op {a.key}: {self_device_us(a) / 1e3:.2f} ms of device time, {a.count // steps} "
+              f"calls per control step")
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
+        print(f"[profile] {tag}  kernel {t / 1e3:8.2f} ms {c // steps:6d}x per control step  {name[:100]}")
+    port = _port_kernels(kernels, steps, tag, "control step")
+    return {"kernels_per_control_step": len(kernels) / steps, "idle_percent": idle, "busy_ms": busy_ms,
+            **{f"{k}_per_control_step": v for k, v in port.items()}}
 
 
 def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, float]:
@@ -123,9 +201,7 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
     # optimizer's step annotation mirror onto the device timeline
     labels = {"kl_bisection", "forward", "minibatch_loss", "optimizer_step", "projection", "backward", "adam"}
     annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)} | labels
-    kernels = [e for e in events if e.device_type == cuda
-               and not getattr(e, "is_user_annotation", False) and e.name not in annotations
-               and not e.name.startswith("Optimizer.")]
+    kernels = _device_kernels(events, annotations)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     per_mb = len(kernels) / n
     idle = 100 - 100 * busy_us / 1e6 / wall
@@ -171,8 +247,10 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {tag}  {t / 1e3:8.2f} ms {c:6d}x  {name[:110]}")
+    port = _port_kernels(kernels, n, tag, "minibatch")
     return {"step_ms": step_ms, "kernels_per_minibatch": per_mb, "idle_percent": idle, "peak_gib": peak_gib,
-            **{f"kernels_{label}": parts[label][0] / n for label in PARTS}}
+            **{f"kernels_{label}": parts[label][0] / n for label in PARTS},
+            **{f"{k}_per_minibatch": v for k, v in port.items()}}
 
 
 def papi_window(trainer, state, tag: str = "") -> Dict[str, float]:
@@ -229,6 +307,11 @@ def main(argv=None):
     update_window(trainer, state, args.minibatches)
     if trainer.cfg.papi_steps:
         papi_window(trainer, state)
+    del trainer, state
+    torch.cuda.empty_cache()
+    cfg["collector"]["frames_per_batch"] = COLLECT_STEPS * cfg["env"]["num_envs"]
+    short = trainer_from_config(cfg, device=dev)
+    collect_window(short, short.init(torch.Generator(device=dev).manual_seed(cfg["seed"])), COLLECT_STEPS)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@ import torch
 
 from geometry_rl_torch.config import _merge, load_config, trainer_from_config
 from geometry_rl_torch.envs import make_env
+from geometry_rl_torch.graphs.types import csr_from_index
+from geometry_rl_torch.models.common import gather_nodes, scatter_sum
+from geometry_rl_torch.models.segment import LAUNCHES as SEGMENT_LAUNCHES
+from geometry_rl_torch.models.segment import ON_THE_SPOT, segment_sum_cuda, segment_sum_ref
+from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
 from geometry_rl_torch.sim.cloth_solve import (
     LAUNCHES,
     cloth_position_solve_cuda,
@@ -577,3 +582,140 @@ def test_bc_epoch_and_render_frames_do_not_synchronise(cuda_device):
     assert torch.isfinite(loss) and done.shape == (5,) and stacked["particles"].shape == (5, 225, 3)
     assert LAUNCHES == {"cloth_solve": 2 * 5, "cloth_solve_env": 0}
     assert len(collect_frames(trainer, state, 5)) == 2  # env 0 ends its episode at the third step
+
+
+# ------------------------------------------------------------ the fixed-order segment sum
+
+# each HEPi main path's config, whose update builds graphs of `mini_batch_size` samples
+HEPI_CONFIGS = ["cloth_hanging_multi_hepi_trpl", "rigid_insertion_multi_hepi_trpl", "rope_closing_hepi_trpl"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", HEPI_CONFIGS)
+def test_segment_sum_kernel_matches_plain_version(cuda_device, config, dtype):
+    """Every CSR of the config's policy graph at its update's minibatch size
+    (cloth and rope 200, rigid 1000: the rigid kNN CSR per env), values of
+    HEPi's width (16 orientations x 64 channels): the kernel adds in the
+    plain version's order, so the two are bit-equal."""
+    cfg = load_config(config)
+    B = cfg["algorithm"]["objective"]["mini_batch_size"]
+    cfg = _merge(cfg, {"env": {"num_envs": B, "kwargs": {"warmup_steps": 0}}})
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    env_state = trainer.env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    graph, _ = trainer.policy_builder.build(obs_norm_apply(trainer.init(torch.Generator(device=cuda_device).manual_seed(0)).norm,
+                                                           trainer.env.observe(env_state)))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for ek, es in graph.edges.items():
+        for csr in (es.dst_csr, es.src_csr):
+            values = torch.randn((B, es.num_edges, 16 * 64), generator=g, device=cuda_device).to(dtype)
+            before = SEGMENT_LAUNCHES["segment_sum"]
+            got = segment_sum_cuda(values, csr)
+            assert SEGMENT_LAUNCHES["segment_sum"] == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, segment_sum_ref(values, csr)), (ek, dtype)
+
+
+@pytest.mark.cuda
+def test_message_sums_launch_the_kernel(cuda_device):
+    """On CUDA tensors scatter_sum's forward and gather_nodes' backward each
+    launch the kernel once, and match the same sums on the CPU (the plain
+    version) bit for bit."""
+    idx = torch.tensor([[0, 3, 3, 1, 3], [2, 2, 0, 0, 4]])
+    csr = csr_from_index(idx, 5)
+    msg = torch.randn(2, 5, 4, 8)
+    x = torch.randn(2, 5, 4, 8)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        SEGMENT_LAUNCHES["segment_sum"] = 0
+        m, v = msg.to(dev, copy=True).requires_grad_(), x.to(dev, copy=True).requires_grad_()
+        c = type(csr)(*(t.to(dev) for t in csr))
+        out = scatter_sum(m, idx.to(dev), 5, c)
+        gathered = gather_nodes(v, idx.to(dev), c)
+        (out.sum() + (gathered * gathered).sum()).backward()
+        outs[dev] = (out.detach().cpu(), v.grad.cpu(), m.grad.cpu())
+        assert SEGMENT_LAUNCHES["segment_sum"] == (2 if dev == "cuda" else 0)
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_segment_sum_rejects_bad_operands(cuda_device):
+    csr = csr_from_index(torch.tensor([[0, 1, 1]], device=cuda_device), 2)
+    values = torch.randn(2, 3, 4, device=cuda_device)
+    for bad_values, bad_csr, err in (
+        (values.half(), csr, TypeError),  # neither f32 nor bf16
+        (values.transpose(0, 1), csr, ValueError),  # not contiguous
+        (values.cpu(), csr, ValueError),  # not on the card
+        (values, type(csr)(csr.perm.long(), csr.offsets), TypeError),  # perm not int32
+        (values, type(csr)(csr.perm, csr.offsets.expand(2, -1).contiguous()), ValueError),  # offsets per env, perm shared
+        (values[:, :2].contiguous(), csr, ValueError),  # perm of another edge count
+    ):
+        with pytest.raises(err):
+            segment_sum_cuda(bad_values, bad_csr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", HEPI_CONFIGS + ["cloth_hanging_multi_empn_trpl", "rigid_pushing_multi_hepi_trpl"])
+def test_collect_and_update_give_the_same_bits_twice(cuda_device, config):
+    """A 4-env collect plus `_update`, twice from one seed, without PyTorch's
+    deterministic algorithms: every param, Adam state, metric and env state
+    tensor equal (NaN equal to NaN). rigid_pushing with
+    dynamic_friction_scale 1.0 runs the XPBD velocity pass."""
+    overrides = {"env": {"num_envs": 4, "kwargs": {"warmup_steps": 1}}, "collector": {"frames_per_batch": 24},
+                 "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 8}}}
+    if config.startswith("rigid_pushing"):
+        overrides["env"]["kwargs"]["dynamic_friction_scale"] = 1.0
+    cfg = load_config(config, overrides=overrides)
+
+    def run():
+        ON_THE_SPOT["csr"] = 0
+        trainer = trainer_from_config(cfg, device=cuda_device)
+        state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+        state, batch, stats = trainer._collect(state)
+        state, metrics = trainer._update(state, batch)
+        assert ON_THE_SPOT["csr"] == 0
+        out = {**{f"m {k}": v for k, v in {**stats, **metrics}.items()},
+               **{f"p {k}": v for k, v in trainer.policy.state_dict().items()},
+               **{f"c {k}": v for k, v in trainer.critic.state_dict().items()}}
+        for opt in ("actor_opt", "critic_opt"):
+            for i, entry in getattr(state, opt).state_dict()["state"].items():
+                out.update({f"{opt} {i} {k}": v for k, v in entry.items()})
+        leaves = [t for t in torch.utils._pytree.tree_leaves(state.env_state) if torch.is_tensor(t)]
+        out.update({f"env {i}": t for i, t in enumerate(leaves)})
+        return out
+
+    first, second = run(), run()
+    assert first.keys() == second.keys()
+    for k, a in first.items():
+        b = second[k]
+        same = ((a == b) | (torch.isnan(a) & torch.isnan(b))).all() if a.is_floating_point() else torch.equal(a, b)
+        assert same, k
+
+
+@pytest.mark.cuda
+def test_xpbd_spec_without_sum_order_raises_on_card(cuda_device):
+    """A joint or attachment spec without its fixed sum order would have one
+    made from its index, read on the host, in every substep: on the card the
+    solver raises instead, and with the order made once it runs."""
+    from geometry_rl_torch.sim import xpbd
+    from geometry_rl_torch.sim.types import FixedJointSpec, RigidBodySpec
+
+    NB, NP, dev = 3, 4, cuda_device
+    ones = torch.ones(NB, device=dev)
+    spec = RigidBodySpec(inv_mass=ones, inv_inertia=torch.ones(NB, 3, device=dev), gravity_scale=0 * ones,
+                         lin_damping=ones, ang_damping=ones, free_pos=torch.ones(NB, 3, device=dev),
+                         free_rot=torch.ones(NB, 3, device=dev))
+    pos, quat = torch.randn(2, NB, 3, device=dev), torch.tensor([1.0, 0, 0, 0], device=dev).expand(2, NB, 4)
+    joints = FixedJointSpec(body_a=torch.tensor([0, 1], device=dev), body_b=torch.tensor([2, 2], device=dev),
+                            local_pos_a=torch.zeros(2, 3, device=dev), local_pos_b=torch.zeros(2, 3, device=dev),
+                            rel_quat=torch.tensor([[1.0, 0, 0, 0]] * 2, device=dev))
+    att = xpbd.BodyAttachment(particle=torch.tensor([0, 3], device=dev), body=torch.tensor([1, 1], device=dev),
+                              local_pos=torch.zeros(2, 3, device=dev))
+    x, inv_mass = torch.randn(2, NP, 3, device=dev), torch.ones(NP, device=dev)
+    with pytest.raises(ValueError, match="joint_sum_order"):
+        xpbd._solve_fixed_joints(pos, quat, spec, joints)
+    with pytest.raises(ValueError, match="attachment_sum_order"):
+        xpbd._solve_attachments(x, inv_mass, pos, quat, spec, att)
+    xpbd._solve_fixed_joints(pos, quat, spec, xpbd.joint_sum_order(joints, NB))
+    xpbd._solve_attachments(x, inv_mass, pos, quat, spec, xpbd.attachment_sum_order(att, NP, NB))
