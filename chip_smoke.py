@@ -29,8 +29,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
      latent 64, 16 orientations, the config's dtype): init(seed 0), one
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
      the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times;
-     HEPi's message sums launched the segment-sum kernel, and no CSR was made
-     on the spot.
+     HEPi's message sums launched the segment-sum kernel, every launch on its
+     16-byte (vec16) route, and no CSR was made on the spot.
   5. the rollout on a small input (4 envs, f32): 3 deterministic steps on the
      card, each also taken by the CPU (where the solve is the plain version)
      from a copy of the card's state: actions, rewards and particle positions
@@ -44,8 +44,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      restores bit-exactly into a fresh trainer. Seconds per iteration, collect
      and update apart. Every training phase (6, 10, 15, 18-20, 23-25) also
      counts the segment-sum kernel's launches: more than 0 for a graph model
-     (HEPi, EMPN), 0 for the Transformer, and no CSR made on the spot.
-  7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json.
+     (HEPi, EMPN), 0 for the Transformer, and no CSR made on the spot; on
+     phases 6, 10 and 15 every launch takes the 16-byte (vec16) route.
+  7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json;
+     some episode ended (a mean final distance above 0).
   8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
      envs, f32, the same batch, params and permutation: first-minibatch
      gradients within 1e-4 of their global norm, params within 1e-5.
@@ -77,11 +79,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
      iteration): the checks of phase 10, and neither cloth kernel launches.
  15b. the segment-sum kernel on the largest call of the updates of phases 6
      (cloth), 10 (rigid: the kNN CSR of each env) and 15 (rope), recorded
-     as they ran: bit-equal to its plain version (SEGMENT_TOL = 0: the same
-     order of f32 adds); device ms per launch (a CUDA graph of 50), the plain
-     version's ms, `index_add_` into f32 on the same rows and destinations
-     and the same under PyTorch's deterministic algorithms, and the bound
-     (values, perm and offsets read once, the output written once).
+     as they ran: ptxas's line for both routes' kernels; the launch plan
+     (the vec16 route on each call) and the route each check launched, read
+     from the per-route counts (vec16, and scalar on the view below); bit-equal
+     to its plain version
+     (SEGMENT_TOL = 0: the same order of f32 adds) on the vec16 route and on
+     the scalar route (the values in a view one element into its storage);
+     device ms per launch (a CUDA graph of 50; the vec16 route also with the L2
+     flushed before each launch, and the scalar route's), the plain version's
+     ms, `index_add_` into f32 on the same rows and destinations and the same
+     under PyTorch's deterministic algorithms, and the bound (values, perm and
+     offsets read once, the output written once) with the share of it.
  16. `train.play` on that run (200 steps, threshold 0.1), as phase 11.
  17. `torch.profiler` over 2 control steps of the rope_closing collect at 200
      envs, as phase 12.
@@ -319,10 +327,37 @@ def segment_counts():
     return SEG["segment_sum"], ON_THE_SPOT["csr"]
 
 
+def segment_routes() -> dict:
+    """The segment-sum kernel's launches per route since the last reset."""
+    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ROUTES
+
+    return {r: SEG[f"segment_sum_{r}"] for r in ROUTES}
+
+
+def check_vec16_route(where: str) -> None:
+    """Every segment-sum launch since the last reset took the 16-byte (vec16) route."""
+    launches, routes = segment_counts()[0], segment_routes()
+    print(f"[route] {where}: segment_sum launches per route {routes}")
+    if routes["vec16"] != launches or sum(routes.values()) != launches:
+        fail(f"{where}: {launches} segment_sum launches, per route {routes}; every one should take the vec16 route")
+
+
+def launched_route(values, csr):
+    """One `segment_sum_cuda` call and the route it launched, read from the per-route counts."""
+    from geometry_rl_torch.models.segment import segment_sum_cuda
+
+    before = segment_routes()
+    out = segment_sum_cuda(values, csr)
+    moved = [r for r, n in segment_routes().items() if n != before[r]]
+    return out, moved[0] if len(moved) == 1 else None
+
+
 def reset_segment_counts() -> None:
     from geometry_rl_torch.models.segment import LAUNCHES as SEG, ON_THE_SPOT
 
-    SEG["segment_sum"] = ON_THE_SPOT["csr"] = 0
+    ON_THE_SPOT["csr"] = 0
+    for key in SEG:
+        SEG[key] = 0
 
 
 class LargestSegmentCall:
@@ -364,33 +399,79 @@ class LargestSegmentCall:
         return False
 
 
-def segment_kernel_phase(card: str, calls: dict) -> dict:
-    """The segment-sum kernel on the largest call of each training phase's
-    update (recorded by `LargestSegmentCall`): bit-equal to its plain version
-    (SEGMENT_TOL), device ms per launch (a CUDA graph of 50 launches), the
-    plain version's ms, the bound (values, perm and offsets read once, the
-    output written once, over 3.35 TB/s; one f32 add per value over 67
-    TFLOP/s), and the library's: one `index_add_` into f32 on the same rows
-    and destinations (the sum in an order that changes from run to run; it
-    reads the rows in f32, twice the bytes of bf16 values), the same call under
-    PyTorch's deterministic algorithms (an accumulating `index_put_` that sorts
-    the indices on every call), and what the parent's `scatter_sum` ran for
-    the same sum from the values' own dtype (zeros, a cast to f32,
-    `index_add_`, a cast back). Returns per family (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms, library_det_ms, shape, index_add_sequence_ms)."""
+def flushed_graph_ms(fn, launches: int = 20, replays: int = 5, flush_bytes: int = 128 << 20) -> float:
+    """Device ms per call of `fn` with the 50 MB L2 flushed before each call:
+    a CUDA graph of `launches` (write of `flush_bytes`, call) pairs less one of
+    `launches` writes alone."""
     import torch
 
-    from geometry_rl_torch.models.segment import segment_sum_cuda, segment_sum_ref
+    buf = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    both = graph_ms(lambda: (buf.zero_(), fn()), launches, replays)
+    return both - graph_ms(buf.zero_, launches, replays)
+
+
+def offset_copy(values, offset: int):
+    """`values` in a contiguous view `offset` elements into its storage (offset 1: not 16-byte aligned)."""
+    import torch
+
+    buf = torch.zeros(values.numel() + offset, dtype=values.dtype, device=values.device)
+    view = buf[offset:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def segment_kernel_phase(card: str, calls: dict) -> dict:
+    """The segment-sum kernel on the largest call of each training phase's
+    update (recorded by `LargestSegmentCall`): the launch plan (the vec16
+    route on every such call) and the route each check launched, read from
+    the per-route counts (vec16; scalar on the view below), bit-equal to its plain
+    version (SEGMENT_TOL) on the vec16 route and on the scalar route (the same
+    values in a view one element into its storage), device ms per launch (a
+    CUDA graph of 50 launches; the vec16 route also with the L2 flushed before
+    each launch, and the scalar route's), the plain version's ms, the bound
+    (values, perm and offsets read once, the output written once, over 3.35
+    TB/s; one f32 add per value over 67 TFLOP/s) and the share of it, and the
+    library's: one `index_add_` into f32 on the same rows and destinations (the
+    sum in an order that changes from run to run; it reads the rows in f32,
+    twice the bytes of bf16 values), the same call under PyTorch's
+    deterministic algorithms (an accumulating `index_put_` that sorts the
+    indices on every call), and what the parent's `scatter_sum` ran for the
+    same sum from the values' own dtype (zeros, a cast to f32, `index_add_`, a
+    cast back). Prints ptxas's line for each route's kernels. Returns per family
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, library_det_ms,
+    shape, index_add_sequence_ms, route, share_of_bound, flushed_ms, scalar_ms,
+    scalar_max_abs_err)."""
+    import torch
+
+    from geometry_rl_torch.cuda_build import BUILD_INFO
+    from geometry_rl_torch.models.segment import launch_plan, segment_sum_cuda, segment_sum_ref
 
     t_phase = time.perf_counter()
+    for kernel, info in BUILD_INFO.get("segment_sum", {}).items():
+        route = "scalar" if "segment_sum_scalar_kernel" in kernel else "vec16"
+        print(f"[kernel] segment_sum {route} route: ptxas {kernel}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
     stats = {}
     for family, (values, csr) in calls.items():
         B, E, F = values.shape
         n, Bp = csr.num_segments, csr.perm.shape[0]
-        got, want = segment_sum_cuda(values, csr), segment_sum_ref(values, csr)
+        plan = launch_plan(B, E, n, F, values.dtype, values.data_ptr() % 16 == 0,
+                           torch.cuda.get_device_properties(values.device).multi_processor_count)
+        if plan.route != "vec16":
+            fail(f"segment_sum on {family}'s largest update call plans the {plan.route} route: {plan}")
+        got, route = launched_route(values, csr)
+        odd = offset_copy(values, 1)
+        got_scalar, scalar_route = launched_route(odd, csr)
+        if (route, scalar_route) != ("vec16", "scalar"):
+            fail(f"segment_sum on {family}'s largest update call took the {route} route, and on its values one "
+                 f"element into their storage the {scalar_route} route")
+        want = segment_sum_ref(values, csr)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        err_scalar = (got_scalar.float() - want.float()).abs().max().item()
         ms = graph_ms(lambda: segment_sum_cuda(values, csr))
+        flushed_ms = flushed_graph_ms(lambda: segment_sum_cuda(values, csr))
+        scalar_ms = graph_ms(lambda: segment_sum_cuda(odd, csr))
+        del odd
         plain_ms = timed_ms(lambda: segment_sum_ref(values, csr), 3)[0]
         # each row's destination, back from the CSR, on the flattened (env, node) axis
         pos = torch.arange(E, device=values.device).expand(Bp, E).contiguous()
@@ -413,14 +494,18 @@ def segment_kernel_phase(card: str, calls: dict) -> dict:
         bound, bound_by = bound_ms(nbytes, values.numel())
         depth = (csr.offsets[:, 1:] - csr.offsets[:, :-1]).max().item()
         print(f"[kernel] segment_sum, {family}'s largest update call: values [{B}, {E}, {F}] {values.dtype}, "
-              f"{n} segments, CSR of {'each env' if Bp > 1 else 'all envs'}, longest segment {depth}: max|kernel - "
-              f"plain| = {err:.3e} (tol {SEGMENT_TOL}); kernel {ms:.5f} ms on the device, plain {plain_ms:.4f} ms, "
+              f"{n} segments, CSR of {'each env' if Bp > 1 else 'all envs'}, longest segment {depth}; plan {plan}: "
+              f"max|kernel - plain| = {err:.3e} (tol {SEGMENT_TOL}), scalar route {err_scalar:.3e}; kernel "
+              f"{ms:.5f} ms on the device ({flushed_ms:.5f} ms with the L2 flushed before each launch; the scalar "
+              f"route {scalar_ms:.5f} ms), plain {plain_ms:.4f} ms, "
               f"index_add_ (f32 rows) {library_ms:.5f} ms, index_add_ under deterministic algorithms "
               f"{library_det_ms:.5f} ms, zeros + cast + index_add_ + cast from {values.dtype} {sequence_ms:.5f} ms; "
-              f"bound {bound:.5f} ms by {bound_by} ({nbytes} bytes), {100 * bound / ms:.2f}% of it; on {card}")
-        if not err <= SEGMENT_TOL:
-            fail(f"segment_sum disagrees with its plain version on {family}'s call: {err}")
-        stats[family] = (err, ms, plain_ms, bound, bound_by, library_ms, library_det_ms, [B, E, F], sequence_ms)
+              f"bound {bound:.5f} ms by {bound_by} ({nbytes} bytes), {100 * bound / ms:.2f}% of it "
+              f"({100 * bound / flushed_ms:.2f}% flushed); on {card}")
+        if not (err <= SEGMENT_TOL and err_scalar <= SEGMENT_TOL):
+            fail(f"segment_sum disagrees with its plain version on {family}'s call: vec16 {err}, scalar {err_scalar}")
+        stats[family] = (err, ms, plain_ms, bound, bound_by, library_ms, library_det_ms, [B, E, F], sequence_ms,
+                         route, bound / ms, flushed_ms, scalar_ms, err_scalar)
     print(f"[kernel] segment_sum phase took {time.perf_counter() - t_phase:.2f} s")
     if sorted(stats) != sorted(calls) or not stats:
         fail(f"segment_sum was checked on {sorted(stats)}: no update call was recorded")
@@ -465,10 +550,11 @@ def solve_inputs(env, generator):
             env.groups, env.self_pair_mask_full, env.self_active_full)
 
 
-def train_phase(card: str, config: str, overrides, expected: dict, record=None):
+def train_phase(card: str, config: str, overrides, expected: dict, record=None, vec16_only: bool = False):
     """Full-width training through the CLI (`config` with `overrides`, on the
     card): the cloth kernels must launch exactly `expected` times, a graph
-    model's message sums launch the segment-sum kernel and never make a CSR
+    model's message sums launch the segment-sum kernel (with `vec16_only`, every
+    launch on its 16-byte route) and never make a CSR
     on the spot, and `record` (a `LargestSegmentCall`) keeps the update's
     largest call of that kernel; every
     metrics row is finite with the reference's keys for its algorithm, the
@@ -507,7 +593,10 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None):
     if (cfg["model"] in GRAPH_MODELS) != (segment > 0) or on_the_spot:
         fail(f"the training path of {config} ({cfg['model']}) launched segment_sum {segment} times and made "
              f"{on_the_spot} CSRs on the spot")
+    if vec16_only:
+        check_vec16_route(f"the training path of {config}")
     launches["segment_sum"] = segment
+    launches.update({f"segment_sum_{r}": n for r, n in segment_routes().items()})
 
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
@@ -786,8 +875,9 @@ def parity_phase(card: str, config: str, positions: dict, model: str = "") -> No
 
 
 def play_phase(card: str, run_dir: str, steps: int = 100, keep: bool = False) -> None:
-    """`train.play` on a run: `steps` steps, success threshold 0.1; the run
-    dir is removed after unless `keep`."""
+    """`train.play` on a run: `steps` steps (at least one episode, so that
+    episodes end and are counted), success threshold 0.1; the run dir is
+    removed after unless `keep`."""
     from geometry_rl_torch.train import play
 
     t_phase = time.perf_counter()
@@ -796,6 +886,8 @@ def play_phase(card: str, run_dir: str, steps: int = 100, keep: bool = False) ->
     for key, entry in results.items():
         if not (entry["reward"] == entry["reward"] and 0.0 <= entry["success_rate"] <= 1.0):
             fail(f"play result for checkpoint {key} is not finite: {entry}")
+        if not entry["mean_final_distance"] > 0.0:  # 0 where no episode ended within the steps
+            fail(f"play result for checkpoint {key}: no episode ended in {steps} steps: {entry}")
     print(f"[play] {os.path.basename(run_dir)}: {len(results)} checkpoints, {steps} steps each: {results}; "
           f"phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
     if not keep:
@@ -1887,6 +1979,8 @@ def main() -> int:
         fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
     if not segment_launches > 0 or on_the_spot:
         fail(f"the rollout path launched segment_sum {segment_launches} times, made {on_the_spot} CSRs on the spot")
+    check_vec16_route("the rollout path")
+    rollout_routes = segment_routes()
 
     # ---- 5. the slice on a small input against the CPU --------------------
     parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})
@@ -1897,6 +1991,7 @@ def main() -> int:
     run_dir, cloth_launches = train_phase(
         card, "cloth_hanging_multi_hepi_trpl", ["env.kwargs.use_pallas_solver=true", "collector.total_frames=10000"],
         {"cloth_solve": 0, "cloth_solve_env": 2 * (10 + 100)}, record=LargestSegmentCall(segment_calls, "cloth"),
+        vec16_only=True,
     )
     env_launches = cloth_launches["cloth_solve_env"]
 
@@ -1912,7 +2007,7 @@ def main() -> int:
     # ---- 10. rigid_insertion training at full width through the CLI -------
     rigid_run, rigid_launches = train_phase(card, RIGID_CONFIG, ["collector.total_frames=100000"],
                                             {"cloth_solve": 0, "cloth_solve_env": 0},
-                                            record=LargestSegmentCall(segment_calls, "rigid"))
+                                            record=LargestSegmentCall(segment_calls, "rigid"), vec16_only=True)
 
     # ---- 11. play on that run (kept for phase 33) -------------------------------
     play_phase(card, rigid_run, keep=True)
@@ -1931,7 +2026,7 @@ def main() -> int:
     # ---- 15. rope_closing training at full width through the CLI ------------
     run_dir, rope_launches = train_phase(card, ROPE_CONFIG, ["collector.total_frames=40000"],
                                          {"cloth_solve": 0, "cloth_solve_env": 0},
-                                         record=LargestSegmentCall(segment_calls, "rope"))
+                                         record=LargestSegmentCall(segment_calls, "rope"), vec16_only=True)
 
     # ---- 15b. the segment-sum kernel on each family's largest update call -----
     segment_stats = segment_kernel_phase(card, segment_calls)
@@ -2035,6 +2130,15 @@ def main() -> int:
          **{f"{key}_{family}": segment_stats[family][i] for family in ("cloth", "rope")
             for i, key in ((0, "max_abs_err"), (1, "ms"), (3, "bound_ms"), (5, "library_ms"),
                            (8, "index_add_sequence_ms"))},
+         # the route phase 15b's check of the rigid call launched (per-route counts), the routes of each
+         # main-path launch, and each call's share of its bound
+         "kernel_route": segment_stats["rigid"][9],
+         "launch_routes": {"rollout": rollout_routes, **{f"{name}_training": {r: runs[f"segment_sum_{r}"] for r in ("vec16", "scalar")}
+                                                         for name, runs in (("cloth", cloth_launches), ("rigid", rigid_launches),
+                                                                            ("rope", rope_launches))}},
+         **{f"{key}_{family}": segment_stats[family][i] for family in ("cloth", "rigid", "rope")
+            for i, key in ((10, "share_of_bound"), (11, "flushed_ms"), (12, "scalar_route_ms"),
+                           (13, "scalar_route_max_abs_err"))},
          "launches_cloth_training": cloth_launches["segment_sum"], "launches_rigid_training": rigid_launches["segment_sum"],
          "launches_rope_training": rope_launches["segment_sum"]}
     ]}))

@@ -13,7 +13,7 @@ from geometry_rl_torch.envs import make_env
 from geometry_rl_torch.graphs.types import csr_from_index
 from geometry_rl_torch.models.common import gather_nodes, scatter_sum
 from geometry_rl_torch.models.segment import LAUNCHES as SEGMENT_LAUNCHES
-from geometry_rl_torch.models.segment import ON_THE_SPOT, segment_sum_cuda, segment_sum_ref
+from geometry_rl_torch.models.segment import ON_THE_SPOT, ROUTES, segment_sum_cuda, segment_sum_ref
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
 from geometry_rl_torch.sim.cloth_solve import (
     LAUNCHES,
@@ -653,6 +653,127 @@ def test_segment_sum_rejects_bad_operands(cuda_device):
     ):
         with pytest.raises(err):
             segment_sum_cuda(bad_values, bad_csr)
+
+
+def stray_index(B, E, n, g, device):
+    """dst [B, E] into n segments: a third of each env's rows in segment 1,
+    segment n // 2 empty everywhere, some indices outside [0, n)."""
+    dst = torch.randint(-1, n + 2, (B, E), generator=g, device=device)
+    dst[:, : E // 3] = 1
+    dst[dst == n // 2] = 0
+    return dst
+
+
+def offset_copy(values, offset):
+    """`values` in a contiguous view `offset` elements into its storage (offset 1: not 16-byte aligned)."""
+    buf = torch.zeros(values.numel() + offset, dtype=values.dtype, device=values.device)
+    view = buf[offset:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def launched_route(values, csr):
+    """The route the wrapper took for one call, from the per-route counts."""
+    before = dict(SEGMENT_LAUNCHES)
+    out = segment_sum_cuda(values, csr)
+    moved = [r for r in ROUTES if SEGMENT_LAUNCHES[f"segment_sum_{r}"] != before[f"segment_sum_{r}"]]
+    assert SEGMENT_LAUNCHES["segment_sum"] == before["segment_sum"] + 1 and len(moved) == 1
+    return out, moved[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 1000])
+@pytest.mark.parametrize("F", [1, 3, 64, 1024, 1028])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_segment_sum_routes_are_bit_equal_to_plain(cuda_device, dtype, F, B):
+    """Both routes (aligned values, and a view with an odd storage offset),
+    a CSR per env and one shared, empty segments and indices outside [0, N):
+    bit-equal to the plain version; the route is the plan's."""
+    g = torch.Generator(device=cuda_device).manual_seed(F)
+    E, n = 24, 9
+    values = torch.randn((B, E, F), generator=g, device=cuda_device).to(dtype)
+    for csr in (csr_from_index(stray_index(B, E, n, g, cuda_device), n),
+                csr_from_index(stray_index(1, E, n, g, cuda_device), n)):
+        for offset in (0, 1):
+            v = offset_copy(values, offset)
+            got, route = launched_route(v, csr)
+            torch.cuda.synchronize()
+            vec16 = offset == 0 and F * v.element_size() % 16 == 0
+            assert route == ("vec16" if vec16 else "scalar")
+            assert torch.equal(got, segment_sum_ref(v, csr)), (route, csr.perm.shape[0], offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 1024])
+def test_segment_sum_with_no_rows_writes_zeros(cuda_device, F):
+    """E = 0 on both routes: every segment is empty and writes 0."""
+    csr = csr_from_index(torch.zeros(3, 0, dtype=torch.long, device=cuda_device), 5)
+    for offset in (0, 1):
+        values = offset_copy(torch.zeros(3, 0, F, device=cuda_device), offset)
+        got, _ = launched_route(values, csr)
+        assert torch.equal(got, torch.zeros(3, 5, F, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_segment_sum_rigid_knn_csr_on_both_routes(cuda_device, dtype):
+    """The rigid kNN graphs of 1000 envs whose shapes have 6 to 32 points: the
+    padded edges of a 6-point shape pile 81 of 96 rows on node 0."""
+    from geometry_rl_torch.graphs.rigid import knn_graph_batch
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    counts = torch.tensor([6, 32, 17, 11, 24, 8]).repeat(167)[:1000].numpy()
+    points = torch.randn((1000, 32, 3), generator=torch.Generator().manual_seed(4)).numpy()
+    _, dst, _ = knn_graph_batch(points, counts, 3)
+    csr = csr_from_index(torch.as_tensor(dst, device=cuda_device).long(), 32)
+    assert (csr.offsets[:, 1:] - csr.offsets[:, :-1]).max().item() == 81
+    values = torch.randn((1000, dst.shape[1], 1024), generator=g, device=cuda_device).to(dtype)
+    for offset, want in ((0, "vec16"), (1, "scalar")):
+        v = offset_copy(values, offset)
+        got, route = launched_route(v, csr)
+        torch.cuda.synchronize()
+        assert route == want and torch.equal(got, segment_sum_ref(v, csr))
+
+
+@pytest.mark.cuda
+def test_segment_sum_replays_in_a_cuda_graph(cuda_device):
+    """A launch captured in a CUDA graph (no host read, no allocation of its
+    own) gives, replayed on new values copied into its input, the plain
+    version's sum of those values."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    csr = csr_from_index(stray_index(200, 120, 40, g, cuda_device), 40)
+    static = torch.randn((200, 120, 1024), generator=g, device=cuda_device).to(torch.bfloat16)
+    segment_sum_cuda(static, csr)  # built and planned before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segment_sum_cuda(static, csr)
+    for seed in (8, 9):
+        fresh = torch.randn(static.shape, generator=g.manual_seed(seed), device=cuda_device).to(torch.bfloat16)
+        static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, segment_sum_ref(fresh, csr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2, 8])
+def test_segment_sum_runs_a_plan_it_is_given(cuda_device, groups):
+    """A plan handed to the wrapper (the plan's segment groups replaced, as
+    `kernel_bench.py --rows` times them) runs as given: bit-equal to the plain
+    version, counted on its route."""
+    from geometry_rl_torch.models.segment import launch_plan
+
+    g = torch.Generator(device=cuda_device).manual_seed(groups)
+    csr = csr_from_index(stray_index(100, 90, 10, g, cuda_device), 10)
+    values = torch.randn((100, 90, 1024), generator=g, device=cuda_device).to(torch.bfloat16)
+    plan = launch_plan(100, 90, 10, 1024, torch.bfloat16, True)
+    plan = plan._replace(groups=groups, grid=plan.grid // plan.groups * groups)
+    before = dict(SEGMENT_LAUNCHES)
+    got = segment_sum_cuda(values, csr, plan)
+    torch.cuda.synchronize()
+    assert SEGMENT_LAUNCHES["segment_sum_vec16"] == before["segment_sum_vec16"] + 1
+    assert torch.equal(got, segment_sum_ref(values, csr))
 
 
 @pytest.mark.cuda

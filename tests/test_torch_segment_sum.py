@@ -21,6 +21,11 @@
 - The XPBD joint and attachment sums (`sim/xpbd.ordered_sum`) against the
   JAX package where one body takes three joints or three attachments and one
   particle two, at tests/test_torch_particle_sim.py's 1e-5.
+- The kernel's launch plan (`models/segment.launch_plan`, pure Python): every
+  segment sum of the HEPi main paths' collects and updates takes the 16-byte
+  route with a grid that fills the card; rows that are not a multiple of 16
+  bytes and unaligned pointers take the scalar route; the shared memory stays
+  within the limit the plan declares.
 """
 
 import jax
@@ -38,7 +43,22 @@ from geometry_rl_torch.graphs.homogenize import homogenize
 from geometry_rl_torch.graphs.rigid import knn_graph_batch
 from geometry_rl_torch.graphs.types import CSR, csr_from_index
 from geometry_rl_torch.models.common import gather_nodes, scatter_mean, scatter_sum
-from geometry_rl_torch.models.segment import LAUNCHES, ON_THE_SPOT, segment_sum, segment_sum_ref
+from geometry_rl_torch.config import load_config, trainer_from_config
+from geometry_rl_torch.models import common as torch_common
+from geometry_rl_torch.models.segment import (
+    CTAS_PER_SM,
+    H100_SMS,
+    LAUNCHES,
+    MAX_TILE_BYTES,
+    ON_THE_SPOT,
+    RING_BYTES,
+    MIN_GROUP_ROWS,
+    SMEM_LIMIT,
+    STAGES,
+    launch_plan,
+    segment_sum,
+    segment_sum_ref,
+)
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
 from geometry_rl_torch.sim import xpbd
 from geometry_rl_torch.sim.types import FixedJointSpec
@@ -293,3 +313,101 @@ def test_three_attachments_on_one_body_match_reference():
                                       torch.as_tensor(quat), tspec, att)
         for g, r, what in zip(got, ref, ("particles", "body pos", "body quat")):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5, rtol=0, err_msg=what)
+
+
+# ------------------------------------------------------------ the kernel's launch plan
+
+HEPI_MAIN_PATHS = ("cloth_hanging_multi_hepi_trpl", "rigid_insertion_multi_hepi_trpl", "rope_closing_hepi_trpl")
+
+
+def main_path_calls(config, monkeypatch):
+    """{(E, N, F, dtype)} of every segment sum in one collect step and one
+    minibatch update of `config` at 2 envs: its widths, its graphs, its
+    dtype (none of them depends on the number of envs)."""
+    seen = set()
+    plain = torch_common.segment_sum
+
+    def recording(values, csr):
+        seen.add((values.shape[1], csr.num_segments, values.shape[2], values.dtype))
+        return plain(values, csr)
+
+    monkeypatch.setattr(torch_common, "segment_sum", recording)
+    cfg = load_config(config, overrides={"env": {"num_envs": 2, "kwargs": {"warmup_steps": 0}},
+                                         "collector": {"frames_per_batch": 2},
+                                         "algorithm": {"objective": {"mini_batch_size": 2, "ppo_epochs": 1}}})
+    trainer = trainer_from_config(cfg, device="cpu")
+    state, batch, _ = trainer._collect(trainer.init(torch.Generator().manual_seed(0)))
+    trainer._update(state, batch)
+    return seen
+
+
+@pytest.mark.parametrize("config", HEPI_MAIN_PATHS)
+def test_main_path_calls_take_the_vec16_route(config, monkeypatch):
+    """Planned at the config's envs (the collect) and minibatch size (the
+    update) with 16-byte aligned tensors (what torch's allocator and the
+    models' contiguous messages give): the 16-byte route, at least one CTA per
+    SM, within the shared memory the plan declares."""
+    calls = main_path_calls(config, monkeypatch)
+    cfg = load_config(config)
+    assert len(calls) >= 3 and {F for _, _, F, _ in calls} == {cfg["algorithm"]["latent_dim"] * cfg["algorithm"]["num_ori"]}
+    for B in (cfg["env"]["num_envs"], cfg["algorithm"]["objective"]["mini_batch_size"]):
+        for E, N, F, dtype in calls:
+            plan = launch_plan(B, E, N, F, dtype, True)
+            assert plan.route == "vec16" and plan.grid >= H100_SMS and plan.smem <= plan.smem_limit, (B, E, N, F, plan)
+
+
+@pytest.mark.parametrize("B,groups,tile,grid", [(1000, 1, 1024, 1000), (200, 4, 1024, 800), (100, 8, 1024, 800),
+                                                (25, 8, 256, 800)])
+def test_plan_splits_envs_until_the_grid_fills_the_card(B, groups, tile, grid):
+    """bf16 rows of 1024 columns, 90 rows an env: a whole env and row per CTA
+    at the rigid update's 1000 envs; at 200 and 100 envs the segments of an
+    env split into 4 and 8 groups (CTAS_PER_SM CTAs per SM); at 25 envs groups
+    stop at about MIN_GROUP_ROWS rows and the rows split into column tiles."""
+    plan = launch_plan(B, 90, 10, 1024, torch.bfloat16, True)
+    assert (plan.route, plan.groups, plan.tile, plan.grid) == ("vec16", groups, tile, grid)
+    assert 90 // plan.groups >= MIN_GROUP_ROWS and plan.grid >= min(B * 90 // MIN_GROUP_ROWS, CTAS_PER_SM * H100_SMS)
+    assert plan.threads == 32 * (tile * 2 // 16 // 32 + 1)  # 16 bytes a consumer thread, then the producer warp
+    assert plan.stages * plan.stage_rows * tile * 2 == RING_BYTES
+
+
+@pytest.mark.parametrize("F,dtype,aligned", [(1, torch.float32, True), (1, torch.bfloat16, True),
+                                             (3, torch.float32, True), (12, torch.bfloat16, True),
+                                             (1028, torch.bfloat16, True), (1024, torch.bfloat16, False),
+                                             (64, torch.float32, False)])
+def test_scalar_route_takes_what_16_byte_copies_cannot(F, dtype, aligned):
+    """A row that is not a multiple of 16 bytes, or a pointer that is not
+    16-byte aligned (a view with an odd storage offset, as scatter_mean's
+    weights of one column): the scalar route, a thread per column of its
+    tile, indices only in shared memory."""
+    plan = launch_plan(4, 40, 8, F, dtype, aligned)
+    assert plan.route == "scalar" and plan.groups == 1 and plan.stages == plan.stage_rows == 0
+    assert plan.smem == 4 * (40 + 8 + 1)
+    assert plan.threads % 32 == 0 and min(F, plan.tile) <= plan.threads <= 256
+    assert plan.grid == 4 * -(-F // plan.tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 64, 1024, 1028, 4096])
+@pytest.mark.parametrize("E", [0, 96, 20000, 55000, 60000])
+def test_ring_stays_within_the_declared_shared_memory(E, F, dtype):
+    """mbarriers, the ring and the env's indices fit the limit the plan
+    declares; the ring keeps RING_BYTES in flight (at least a row a stage),
+    with fewer rows a stage, then fewer stages, only where one more row would
+    not fit beside the indices; an env whose indices alone overflow shared
+    memory raises."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    for B, aligned in ((1, True), (1000, True), (1000, False)):
+        if 4 * (E + 33) > SMEM_LIMIT:
+            with pytest.raises(ValueError):
+                launch_plan(B, E, 32, F, dtype, aligned)
+            continue
+        plan = launch_plan(B, E, 32, F, dtype, aligned)
+        assert plan.smem <= plan.smem_limit == SMEM_LIMIT
+        if plan.route == "vec16":
+            tile_bytes = plan.tile * elt
+            ring = plan.stages * plan.stage_rows * tile_bytes
+            assert tile_bytes % 16 == 0 and tile_bytes <= MAX_TILE_BYTES and 2 <= plan.stages <= STAGES
+            assert plan.smem == -(-16 * plan.stages // 128) * 128 + ring + 4 * (E + 33)
+            assert ring <= max(RING_BYTES, STAGES * tile_bytes)
+            if (plan.stages, plan.stage_rows) != (STAGES, max(1, RING_BYTES // tile_bytes // STAGES)):
+                assert plan.smem + plan.stages * tile_bytes > plan.smem_limit  # one more row a stage would not fit
