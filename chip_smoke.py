@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering, data parallelism and the evaluation tools on one GPU, and show that two runs from one seed give the same bits.
+"""Build the port's CUDA kernels and drive its cloth_hanging, rigid_insertion, rope_closing and two-gripper HEPi paths, its EMPN and Transformer paths, clipped PPO, KL-penalty PPO and PAPI, behaviour cloning, the runner, rollout rendering, data parallelism, the evaluation tools and the benchmark entry points on one GPU, and show that two runs from one seed give the same bits.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-35 (or those listed) only, no result lines
+    python3 chip_smoke.py --new-phases [31 | 28,30]   # phases 1, 2 and 28-36 (or those listed) only, no result lines
     python3 chip_smoke.py --new-phases 15             # phase 15b alone, on the updates of short runs
     python3 chip_smoke.py --keep-going   # report every failed gate, then exit non-zero
 
@@ -181,6 +181,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
      `tools.eval_breakdown` again on phase 10's run: phase 33's report; in
      one child process, cloth and rigid HEPi without and with
      `torch.use_deterministic_algorithms(True)`: the same bits, no warning.
+ 36. the benchmark entry points at full width, cut in depth:
+     `tools.bench --steps 4 --runs 1` (the rigid_insertion collection at 1024
+     envs, the cloth_hanging one at 256, one rigid_insertion iteration at
+     1024 envs with its MFU) and `tools.bench_all --steps 2` row by row (the
+     8 rows at scripts/bench_all.py's sizes): each JSON parses, every rate
+     finite and > 0, 0 < mfu <= 1 on the H100, the card's name, no error row;
+     K2's port launches exactly in the cloth collection and the cloth_hanging
+     row, K1's in the cloth_hanging_pallas row, neither elsewhere; every
+     segment-sum launch on the vec16 route.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}.
 
@@ -420,6 +429,22 @@ def offset_copy(values, offset: int):
     return view
 
 
+def index_add_operands(values, csr):
+    """The library's call for the segment sum of `values` [B, E, F] in `csr`:
+    `acc.index_add_(0, flat, rows)` with `acc` [B * N, F] f32 zeros, `flat`
+    each row's destination on the flattened (env, segment) axis, read back
+    from the CSR, and `rows` the values in f32, [B * E, F]."""
+    import torch
+
+    B, E, F = values.shape
+    n, Bp = csr.num_segments, csr.perm.shape[0]
+    pos = torch.arange(E, device=values.device).expand(Bp, E).contiguous()
+    seg = torch.searchsorted(csr.offsets[:, 1:].contiguous().long(), pos, right=True)
+    dst = torch.empty_like(seg).scatter_(1, csr.perm.long(), seg).expand(B, E)
+    flat = (dst + n * torch.arange(B, device=values.device)[:, None]).reshape(-1)
+    return torch.zeros((B * n, F), device=values.device), flat, values.float().reshape(B * E, F)
+
+
 def segment_kernel_phase(card: str, calls: dict) -> dict:
     """The segment-sum kernel on the largest call of each training phase's
     update (recorded by `LargestSegmentCall`): the launch plan (the vec16
@@ -473,13 +498,7 @@ def segment_kernel_phase(card: str, calls: dict) -> dict:
         scalar_ms = graph_ms(lambda: segment_sum_cuda(odd, csr))
         del odd
         plain_ms = timed_ms(lambda: segment_sum_ref(values, csr), 3)[0]
-        # each row's destination, back from the CSR, on the flattened (env, node) axis
-        pos = torch.arange(E, device=values.device).expand(Bp, E).contiguous()
-        seg = torch.searchsorted(csr.offsets[:, 1:].contiguous().long(), pos, right=True)
-        dst = torch.empty_like(seg).scatter_(1, csr.perm.long(), seg).expand(B, E)
-        flat = (dst + n * torch.arange(B, device=values.device)[:, None]).reshape(-1)
-        rows = values.float().reshape(B * E, F)
-        acc = torch.zeros((B * n, F), device=values.device)
+        acc, flat, rows = index_add_operands(values, csr)
         library_ms = timed_ms(lambda: acc.index_add_(0, flat, rows), 10)[0]
         torch.use_deterministic_algorithms(True)
         try:
@@ -1796,8 +1815,107 @@ def learn_check_phase(card: str, iterations: int = 2) -> dict:
     return launches
 
 
+def bench_phase(card: str, steps: int = 4, runs: int = 1, table_steps: int = 2) -> dict:
+    """Phase 36: the benchmark entry points at full width, cut in depth.
+    `tools.bench --steps 4 --runs 1`: its JSON line parses, every rate and
+    time is finite and > 0, 0 < mfu <= 1 where the card's peak is in its
+    table, `device_kind` is the card's; K2's port launches exactly 2
+    substeps x (a warm-up run + `runs`) x `steps` times (the cloth
+    collection; its env has no warm-up steps) and K1's never. Then
+    `tools.bench_all --steps 2`, row by row at the script's sizes: no error
+    row, exit code 0, every rate finite and > 0; K2's port launches exactly
+    2 substeps x 2 measurements x (the env's warm-up steps + 4 runs x
+    `table_steps`) times in the cloth_hanging row, K1's as many in the
+    cloth_hanging_pallas row, neither in any other row. Both tools: every
+    segment-sum launch on the vec16 route, no CSR made on the spot. Returns
+    the launch counts of each tool."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from geometry_rl_torch.envs import cloth_hanging_cfg
+    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
+    from geometry_rl_torch.tools import bench, bench_all
+
+    def finite_positive(x):
+        return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+    def counts():
+        return {**LAUNCHES, "segment_sum": segment_counts()[0]}
+
+    t_phase = time.perf_counter()
+    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    reset_segment_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--steps", str(steps), "--runs", str(runs), "--device", "cuda"])
+    torch.cuda.synchronize()
+    line = out.getvalue().strip().splitlines()[-1]
+    launches = {"bench": counts()}
+    print(f"[bench] {line}")
+    rec = json.loads(line)
+    extra, iteration = rec["extra"], rec["extra"]["rigid_insertion_train_iteration"]
+    expected = {"cloth_solve": 2 * (1 + runs) * steps, "cloth_solve_env": 0}
+    print(f"[bench] launches {launches['bench']} (cloth kernels expected {expected}); "
+          f"{time.perf_counter() - t_phase:.2f} s; on {card}")
+    rates = {"value": rec["value"], "cloth": extra["cloth_hanging_collection_env_steps_per_sec"],
+             **{k: iteration[k] for k in ("iteration_s", "frames_per_sec", "collect_s", "update_s")}}
+    if rec["metric"] != bench.METRIC or not all(map(finite_positive, rates.values())):
+        fail(f"tools.bench printed {rec['metric']} with {rates}")
+    kind = torch.cuda.get_device_name(0)
+    if extra["device_kind"] != kind or not finite_positive(extra.get("power_limit_w")):
+        fail(f"tools.bench reported the device {extra['device_kind']!r} at {extra.get('power_limit_w')} W; the card is {kind!r}")
+    if kind in bench.PEAK_FLOPS and not (0 < iteration.get("mfu", 0) <= 1 and finite_positive(iteration.get("flops_per_iter"))):
+        fail(f"tools.bench's iteration reported mfu {iteration.get('mfu')} of {iteration.get('flops_per_iter')} FLOPs")
+    if {k: launches["bench"][k] for k in expected} != expected:
+        fail(f"tools.bench launched {launches['bench']}, expected the cloth kernels {expected}")
+    if not launches["bench"]["segment_sum"] > 0 or segment_counts()[1]:
+        fail(f"tools.bench launched segment_sum {launches['bench']['segment_sum']} times, "
+             f"made {segment_counts()[1]} CSRs on the spot")
+    check_vec16_route("tools.bench")
+
+    t0 = time.perf_counter()
+    reset_segment_counts()
+    warmup = cloth_hanging_cfg().warmup_steps
+    per_row = 2 * 2 * (warmup + (1 + bench_all.RUNS) * table_steps)
+    table, total = {}, {"cloth_solve": 0, "cloth_solve_env": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, _, _ in bench_all.TASKS:
+            LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+            path = os.path.join(tmp, f"{task}.json")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = bench_all.main(["--steps", str(table_steps), "--tasks", task, "--out", path, "--device", "cuda"])
+            torch.cuda.synchronize()
+            with open(path) as f:
+                table[task] = json.load(f)[task]
+            row = dict(LAUNCHES)
+            expected = {"cloth_solve": per_row if task == "cloth_hanging" else 0,
+                        "cloth_solve_env": per_row if task == "cloth_hanging_pallas" else 0}
+            print(f"[bench_all] {task} -> {json.dumps(table[task])}; exit {rc}; cloth kernel launches {row} "
+                  f"(expected {expected})")
+            rates = [v for k, v in table[task].items() if k.endswith("_per_s")]
+            if rc != 0 or "error" in table[task] or len(rates) != 1 + (task in bench_all.COLLECTION_ROWS):
+                fail(f"tools.bench_all's {task} row: {table[task]}, exit {rc}")
+            if not all(map(finite_positive, rates)):
+                fail(f"tools.bench_all's {task} row holds a rate that is not finite and > 0: {table[task]}")
+            if row != expected:
+                fail(f"tools.bench_all's {task} row launched {row}, expected {expected}")
+            total = {k: total[k] + row[k] for k in total}
+    launches["bench_all"] = {**total, "segment_sum": segment_counts()[0]}
+    print(f"[bench_all] launches {launches['bench_all']}; {time.perf_counter() - t0:.2f} s")
+    if not launches["bench_all"]["segment_sum"] > 0 or segment_counts()[1]:
+        fail(f"tools.bench_all launched segment_sum {launches['bench_all']['segment_sum']} times, "
+             f"made {segment_counts()[1]} CSRs on the spot")
+    check_vec16_route("tools.bench_all")
+    print(f"[bench] phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+    return launches
+
+
 def new_phases(card: str, only=None, rigid_run=None) -> dict:
-    """Phases 28-35 (those in `only`, where given), each printing its
+    """Phases 28-36 (those in `only`, where given), each printing its
     seconds; returns their launch counts. Phase 33 reads phase 10's run
     (`rigid_run`); without it, it trains one as phase 10 does. Phase 35
     makes phase 33's report again, and runs phase 33 for that."""
@@ -1834,6 +1952,8 @@ def new_phases(card: str, only=None, rigid_run=None) -> dict:
         repro_phase(card, rigid_run, breakdown)  # ---- 35. two runs from one seed give the same bits
     elif rigid_run is not None:
         shutil.rmtree(os.path.dirname(rigid_run))
+    if not only or 36 in only:
+        out["bench"] = bench_phase(card)  # ---- 36. tools.bench and tools.bench_all at full width
     return out
 
 
@@ -1890,7 +2010,7 @@ def main() -> int:
             if info[k].get("spill_store_bytes", 0) or info[k].get("spill_load_bytes", 0):
                 fail(f"{k} spills registers: {info[k]}")
 
-    if "--new-phases" in sys.argv:  # phases 28-35 alone (or those listed after it), for work on them; no result line
+    if "--new-phases" in sys.argv:  # phases 28-36 alone (or those listed after it), for work on them; no result line
         listed = sys.argv[sys.argv.index("--new-phases") + 1:]
         new_phases(card, {int(p) for p in listed[0].split(",")} if listed and listed[0][0].isdigit() else None)
         return 1 if FAILURES else 0
@@ -2117,7 +2237,8 @@ def main() -> int:
              "launches_render": new["render"], "launches_dp_rank": new["dp"]["rank"]["cloth_solve"]}
             if name == "cloth_solve" else {}),
          "launches_smoke_env_cloth": new["smoke_env"]["cloth_hanging"][name],
-         "launches_learn_check": new["learn_check"][name]}
+         "launches_learn_check": new["learn_check"][name],
+         "launches_bench": new["bench"]["bench"][name], "launches_bench_all": new["bench"]["bench_all"][name]}
         for name, line, n_launch in (("cloth_solve", 385, launches), ("cloth_solve_env", 456, env_launches))
     ] + [
         # no Pallas kernel: the JAX package's one-hot contractions of scatter_sum and gather_nodes, left to XLA
@@ -2140,7 +2261,9 @@ def main() -> int:
             for i, key in ((10, "share_of_bound"), (11, "flushed_ms"), (12, "scalar_route_ms"),
                            (13, "scalar_route_max_abs_err"))},
          "launches_cloth_training": cloth_launches["segment_sum"], "launches_rigid_training": rigid_launches["segment_sum"],
-         "launches_rope_training": rope_launches["segment_sum"]}
+         "launches_rope_training": rope_launches["segment_sum"],
+         "launches_bench": new["bench"]["bench"]["segment_sum"],
+         "launches_bench_all": new["bench"]["bench_all"]["segment_sum"]}
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

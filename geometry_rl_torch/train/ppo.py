@@ -411,6 +411,11 @@ class Trainer:
             "env_ids": torch.arange(B, device=self.device).repeat(T),
         }
 
+    @staticmethod
+    def _minibatch(data: Dict, idx: torch.Tensor) -> Dict:
+        """The samples `idx` of `_update_data`'s flattened batch."""
+        return {k: ({g: x[idx] for g, x in v.items()} if k == "tobs" else v[idx]) for k, v in data.items()}
+
     def _update(self, state: TrainState, batch: Batch, lr_scale: Optional[float] = None
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """ppo_epochs x minibatches of loss, backward and Adam; `lr_scale`
@@ -424,7 +429,7 @@ class Trainer:
             perm = self._permutation(state.generator, n)
             shares = [(idx, None) for idx in perm] if self.dp is None else self._local_minibatches(perm)
             for idx, pos in shares:
-                mb = {k: ({g: x[idx] for g, x in v.items()} if k == "tobs" else v[idx]) for k, v in data.items()}
+                mb = self._minibatch(data, idx)
                 if pos is not None:
                     mb["rows"] = Rows(pos, self.mini_batch_size)
                 metrics, kl_beta = self._minibatch_step(state, mb, num_updates, kl_beta, lr_scale)

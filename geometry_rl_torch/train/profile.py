@@ -147,7 +147,7 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
     state, batch, _ = trainer._collect(state)
     data = trainer._update_data(state, batch)
     idx = trainer._permutation(state.generator, data["action"].shape[0])[:minibatches]
-    mbs = [{k: ({g: x[i] for g, x in v.items()} if k == "tobs" else v[i]) for k, v in data.items()} for i in idx]
+    mbs = [trainer._minibatch(data, i) for i in idx]
 
     def window():
         kl_beta = state.kl_beta

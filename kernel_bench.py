@@ -30,8 +30,10 @@ orientations x 64 channels, seed 1, in the config's dtype): cloth at 200 and
 100 envs, rigid at 1000, rope at 200. Per call: bit-equality with the plain
 version, the route taken (where the tree counts routes), device ms (as above)
 and with the 50 MB L2 flushed before each launch, eager and host ms per call,
-and the bound (values, perm and offsets read once, the output written once,
-over 3.35 TB/s) with the share of it.
+the plain version's and `index_add_`'s ms per call (CUDA events over 3 and
+10 calls, as chip_smoke.py's phase 15b times them), and the bound (values,
+perm and offsets read once, the output written once, over 3.35 TB/s) with
+the share of it.
 --rows (this checkout only): the segment sum's vec16 route on values
 [100, E, 1024] bf16 of one shared random CSR (seed 0), device ms per launch
 against E = 0 .. 360 rows an env into 10 segments, with every env in one CTA
@@ -97,7 +99,7 @@ def segment_rows(label: str) -> list:
     """Time the tree's segment-sum kernel on `segment_calls()`."""
     import torch
 
-    from chip_smoke import bound_ms, flushed_graph_ms, graph_ms, timed_ms
+    from chip_smoke import bound_ms, flushed_graph_ms, graph_ms, index_add_operands, timed_ms
     from geometry_rl_torch.models import segment
 
     rows = []
@@ -110,6 +112,10 @@ def segment_rows(label: str) -> list:
         device = graph_ms(lambda: segment.segment_sum_cuda(values, csr))
         flushed = flushed_graph_ms(lambda: segment.segment_sum_cuda(values, csr))
         eager, host = timed_ms(lambda: segment.segment_sum_cuda(values, csr), 200)
+        plain = timed_ms(lambda: segment.segment_sum_ref(values, csr), 3)[0]
+        acc, flat, f32_rows = index_add_operands(values, csr)
+        library = timed_ms(lambda: acc.index_add_(0, flat, f32_rows), 10)[0]
+        del acc, flat, f32_rows
         B, E, F = values.shape
         elt = values.element_size()
         nbytes = values.numel() * elt + 4 * csr.perm.numel() + 4 * csr.offsets.numel() + B * csr.num_segments * F * elt
@@ -119,12 +125,14 @@ def segment_rows(label: str) -> list:
                      "dtype": str(values.dtype), "segments": csr.num_segments, "per_env_csr": csr.perm.shape[0] > 1,
                      "longest_segment": depth, "route": routes[0] if routes else None, "bit_equal": equal,
                      "device_ms": device, "flushed_ms": flushed, "eager_ms": eager, "host_ms": host,
+                     "plain_ms": plain, "index_add_ms": library,
                      "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / device,
                      "share_of_bound_flushed": bound / flushed})
         print(f"[bench] {label} segment_sum {family} {'+'.join(kinds)} [{B}, {E}, {F}] {values.dtype}, "
               f"{csr.num_segments} segments, longest {depth}, route {rows[-1]['route']}: bit-equal {equal}, device "
               f"{device:.5f} ms ({flushed:.5f} ms with the L2 flushed), eager {eager:.5f} ms per call, host "
-              f"{host:.5f} ms per call; bound {bound:.5f} ms by {bound_by}, {100 * bound / device:.1f}% of it "
+              f"{host:.5f} ms per call; plain {plain:.4f} ms, index_add_ (f32 rows) {library:.5f} ms per call; "
+              f"bound {bound:.5f} ms by {bound_by}, {100 * bound / device:.1f}% of it "
               f"({100 * bound / flushed:.1f}% flushed)", flush=True)
     return rows
 
