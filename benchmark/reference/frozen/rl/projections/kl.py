@@ -1,0 +1,97 @@
+"""Differentiable diagonal KL covariance projection (port of
+`geometry_rl_tpu/rl/projections/kl.py`).
+
+Per batch element, with variances v, v_old > 0:
+
+    min_{v*}  KLcov(v* || v)   s.t.  KLcov(v* || v_old) <= eps,
+    KLcov(a || b) = 0.5 * sum_i [ a_i/b_i - 1 + log b_i - log a_i ].
+
+The solution interpolates in precision space, 1/v* = (1/v + eta/v_old) /
+(1 + eta), with the scalar dual eta >= 0 found by a fixed 60-step bisection
+in log1p space; the backward differentiates it by the implicit function
+theorem. Gradients reach the new variance only (None for old_var and eps);
+where the solve is not finite the projection falls back to v_old with no
+gradient. The bisection is plain PyTorch: 60 rounds of small elementwise ops.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_BISECT_ITERS = 60  # 2^-60 relative bracket width, beyond f32 resolution
+_ETA_MAX = 1e12
+
+
+def _kl_cov_diag(var_p: torch.Tensor, var_q: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum(v_p/v_q - 1 - log(v_p/v_q)) over the last axis."""
+    ratio = var_p / var_q
+    return 0.5 * (ratio - 1.0 - torch.log(ratio)).sum(-1)
+
+
+def _interp_var(var: torch.Tensor, old_var: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """v*(eta): precision-space interpolation between var (eta=0) and old_var."""
+    eta = eta[..., None]
+    return (1.0 + eta) / (1.0 / var + eta / old_var)
+
+
+def _solve_eta(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Bisection for eta per batch element on [0, ETA_MAX]; eta = 0 where
+    the constraint already holds at eta = 0."""
+
+    def constraint(eta):
+        return _kl_cov_diag(_interp_var(var, old_var, eta), old_var) - eps
+
+    lo = torch.zeros(var.shape[:-1], dtype=var.dtype, device=var.device)
+    hi = torch.full(var.shape[:-1], _ETA_MAX, dtype=var.dtype, device=var.device)
+    needs_proj = constraint(lo) > 0.0
+    for _ in range(_BISECT_ITERS):
+        mid = torch.expm1(0.5 * (torch.log1p(lo) + torch.log1p(hi)))
+        gt = constraint(mid) > 0.0  # still violating -> need larger eta
+        lo = torch.where(gt, mid, lo)
+        hi = torch.where(gt, hi, mid)
+    eta = 0.5 * (lo + hi)
+    return torch.where(needs_proj, eta, torch.zeros_like(eta))
+
+
+class KLDiagCovProjection(torch.autograd.Function):
+    """`_kl_diag_cov_projection` with its custom VJP (`kl.py:93-147`)."""
+
+    @staticmethod
+    def forward(ctx, var, old_var, eps):
+        with torch.no_grad():
+            eta = _solve_eta(var, old_var, eps)
+            proj = _interp_var(var, old_var, eta)
+            # fallback: keep the old variance where the solve went non-finite
+            bad = ~torch.isfinite(proj).all(-1, keepdim=True)
+            proj = torch.where(bad, old_var, proj)
+        ctx.save_for_backward(var, old_var, eta, bad)
+        return proj
+
+    @staticmethod
+    def backward(ctx, g):
+        var, old_var, eta, bad = ctx.saved_tensors
+        active = eta > 0.0
+        e = eta[..., None]
+        # f(v, eta) = (1+eta) / (1/v + eta/v_old); c(v, eta) = KLcov(f || v_old) - eps
+        # dproj/dv = f_v + f_eta * deta/dv, deta/dv = -c_v / c_eta
+        denom = 1.0 / var + e / old_var  # = (1+eta)/proj
+        proj = (1.0 + e) / denom
+        f_v = (1.0 + e) / (denom * var) ** 2
+        f_eta = (1.0 / var - 1.0 / old_var) / denom**2
+        c_proj = 0.5 * (1.0 / old_var - 1.0 / proj)
+        c_v = c_proj * f_v
+        c_eta = (c_proj * f_eta).sum(-1)
+        g_f_eta = (g * f_eta).sum(-1)
+        safe_c_eta = torch.where(active, c_eta, torch.ones_like(c_eta))
+        correction = c_v * (g_f_eta / safe_c_eta)[..., None]
+        d_var = torch.where(active[..., None], g * f_v - correction, g)  # inactive: identity
+        d_var = torch.where(bad, torch.zeros_like(d_var), d_var)  # fallback: no gradient
+        return d_var, None, None
+
+
+def kl_diag_cov_projection(var: torch.Tensor, old_var: torch.Tensor, eps) -> torch.Tensor:
+    """Project `var` into the KL ball of radius `eps` around `old_var`.
+    var, old_var [..., K]; eps a scalar or [...]. Differentiable w.r.t. `var`
+    only."""
+    eps = torch.broadcast_to(torch.as_tensor(eps, dtype=var.dtype, device=var.device), var.shape[:-1])
+    return KLDiagCovProjection.apply(var, old_var, eps)
