@@ -329,44 +329,65 @@ def main_path_kernels(lib: str, info: dict) -> list:
     return [k for k in info if k == want] or [k for k in info if k.startswith("_Z") and want in k]
 
 
-def segment_counts():
-    """(the segment-sum kernel's launches, the CSRs made on the spot) since the last reset."""
-    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ON_THE_SPOT
-
-    return SEG["segment_sum"], ON_THE_SPOT["csr"]
+CLOTH_KERNELS = ("cloth_solve", "cloth_solve_env")
 
 
-def segment_routes() -> dict:
-    """The segment-sum kernel's launches per route since the last reset."""
-    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ROUTES
+def counter_snapshot() -> dict:
+    """The port's counters as they stand (utils/trace.py's COUNTERS, which
+    never reset), to read what moved since."""
+    from geometry_rl_torch.utils.trace import COUNTERS
 
-    return {r: SEG[f"segment_sum_{r}"] for r in ROUTES}
+    return dict(COUNTERS)
 
 
-def check_vec16_route(where: str) -> None:
-    """Every segment-sum launch since the last reset took the 16-byte (vec16) route."""
-    launches, routes = segment_counts()[0], segment_routes()
+def launch_counts(since: dict, *names) -> dict:
+    """Each kernel's launches since the snapshot `since`, by name (`names`:
+    the two cloth kernels by default; `segment_sum.<route>` per route)."""
+    from geometry_rl_torch.utils.trace import COUNTERS
+
+    return {n: COUNTERS.get(f"kernels.{n}", 0) - since.get(f"kernels.{n}", 0) for n in names or CLOTH_KERNELS}
+
+
+def segment_counts(since: dict):
+    """(the segment-sum kernel's launches since `since`, the CSRs made on the spot since the last reset)."""
+    from geometry_rl_torch.models.segment import ON_THE_SPOT
+
+    return launch_counts(since, "segment_sum")["segment_sum"], ON_THE_SPOT["csr"]
+
+
+def segment_routes(since: dict) -> dict:
+    """The segment-sum kernel's launches per route since `since`."""
+    from geometry_rl_torch.models.segment import ROUTES
+
+    return {r: launch_counts(since, f"segment_sum.{r}")[f"segment_sum.{r}"] for r in ROUTES}
+
+
+def check_vec16_route(where: str, since: dict) -> None:
+    """Every segment-sum launch since `since` took the 16-byte (vec16) route."""
+    launches, routes = segment_counts(since)[0], segment_routes(since)
     print(f"[route] {where}: segment_sum launches per route {routes}")
     if routes["vec16"] != launches or sum(routes.values()) != launches:
         fail(f"{where}: {launches} segment_sum launches, per route {routes}; every one should take the vec16 route")
 
 
 def launched_route(values, csr):
-    """One `segment_sum_cuda` call and the route it launched, read from the per-route counts."""
-    from geometry_rl_torch.models.segment import segment_sum_cuda
+    """One `segment_sum_cuda` call and the route it launched, read from the per-route counters."""
+    from geometry_rl_torch.models.segment import ROUTES, segment_sum_cuda
+    from geometry_rl_torch.utils.trace import counting
 
-    before = segment_routes()
-    out = segment_sum_cuda(values, csr)
-    moved = [r for r, n in segment_routes().items() if n != before[r]]
+    with counting(*(f"kernels.segment_sum.{r}" for r in ROUTES)) as launched:
+        out = segment_sum_cuda(values, csr)
+    moved = [r for r in ROUTES if launched[f"kernels.segment_sum.{r}"]]
     return out, moved[0] if len(moved) == 1 else None
 
 
-def reset_segment_counts() -> None:
-    from geometry_rl_torch.models.segment import LAUNCHES as SEG, ON_THE_SPOT
+def reset_segment_counts() -> dict:
+    """Zeroes the count of CSRs made on the spot; returns the counters'
+    snapshot to read the launches since."""
+    from geometry_rl_torch.models.segment import ON_THE_SPOT
 
     ON_THE_SPOT["csr"] = 0
-    for key in SEG:
-        SEG[key] = 0
+    return counter_snapshot()
 
 
 class LargestSegmentCall:
@@ -585,7 +606,6 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None, 
     import torch
 
     from geometry_rl_torch.config import load_config, trainer_from_config
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.train import cli
     from geometry_rl_torch.train.checkpoint import STATE_FILE, latest_step, restore_checkpoint, restore_tree
 
@@ -595,15 +615,14 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None, 
     cfg = load_config(config, cli.parse_overrides(overrides))
     B, T = cfg["env"]["num_envs"], cfg["collector"]["frames_per_batch"] // cfg["env"]["num_envs"]
     iterations = cfg["collector"]["total_frames"] // cfg["collector"]["frames_per_batch"]
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    reset_segment_counts()
+    since = reset_segment_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with record or contextlib.nullcontext():
         run_dir = cli.main(["--config", config, "--device", "cuda", "--override", *overrides])
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    segment, on_the_spot = segment_counts()
+    launches = launch_counts(since)
+    segment, on_the_spot = segment_counts(since)
     print(f"[train] {config}: {iterations} iterations of {B} envs x {T} steps; cloth kernel launches {launches} "
           f"(expected {expected}); segment_sum launches {segment}, CSRs made on the spot {on_the_spot}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -613,9 +632,9 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None, 
         fail(f"the training path of {config} ({cfg['model']}) launched segment_sum {segment} times and made "
              f"{on_the_spot} CSRs on the spot")
     if vec16_only:
-        check_vec16_route(f"the training path of {config}")
+        check_vec16_route(f"the training path of {config}", since)
     launches["segment_sum"] = segment
-    launches.update({f"segment_sum_{r}": n for r, n in segment_routes().items()})
+    launches.update({f"segment_sum_{r}": n for r, n in segment_routes(since).items()})
 
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
@@ -992,7 +1011,6 @@ def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
 
     from geometry_rl_torch.config import load_config
     from geometry_rl_torch.envs import make_env
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 
     t_phase = time.perf_counter()
     cfg = load_config("cloth_hanging_multi_hepi_trpl")
@@ -1002,7 +1020,7 @@ def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
     env_t = make_env("cloth_hanging", **{**kw, "use_pallas_solver": "tiled"})
     if env_x.solver_mode is not False or env_t.solver_mode != "tiled":
         fail(f"solver modes {env_x.solver_mode!r} / {env_t.solver_mode!r}, expected False / 'tiled'")
-    before = dict(LAUNCHES)
+    since = counter_snapshot()
     state = env_x.reset(torch.Generator(device="cuda").manual_seed(7))
     A = env_x.cfg.action_dim
     worst = {"particles": 0.0, "grippers": 0.0}
@@ -1015,13 +1033,13 @@ def cloth_xpbd_phase(card: str, steps: int = 3) -> None:
         sx = env_x._physics(pre, state.hanger_pos)
         torch.cuda.synchronize()
         t_x += time.perf_counter() - t0
-        if dict(LAUNCHES) != before:
-            fail(f"the use_pallas_solver=False env launched a cloth kernel: {dict(LAUNCHES)} from {before}")
+        if any(launch_counts(since).values()):
+            fail(f"the use_pallas_solver=False env launched a cloth kernel: {launch_counts(since)}")
         t0 = time.perf_counter()
         st = env_t._physics(pre, state.hanger_pos)
         torch.cuda.synchronize()
         t_t += time.perf_counter() - t0
-        before = dict(LAUNCHES)
+        since = counter_snapshot()
         worst["particles"] = max(worst["particles"], (st.particles.pos - sx.particles.pos).abs().max().item())
         worst["grippers"] = max(worst["grippers"], (st.bodies.pos - sx.bodies.pos).abs().max().item())
         moved_by = max(moved_by, (sx.particles.pos - pre.particles.pos).abs().max().item())
@@ -1065,19 +1083,17 @@ def counted(obj, name: str, into: dict, key: str):
     device synchronize) under `into[key + "_s"]`."""
     import torch
 
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
-
     inner = getattr(obj, name)
 
     def wrapper(*args, **kwargs):
-        before = LAUNCHES["cloth_solve"] + LAUNCHES["cloth_solve_env"]
+        since = counter_snapshot()
         t0 = time.perf_counter()
         try:
             return inner(*args, **kwargs)
         finally:
             torch.cuda.synchronize()
             into[key + "_s"] = into.get(key + "_s", 0.0) + time.perf_counter() - t0
-            into[key] = into.get(key, 0) + LAUNCHES["cloth_solve"] + LAUNCHES["cloth_solve_env"] - before
+            into[key] = into.get(key, 0) + sum(launch_counts(since).values())
 
     setattr(obj, name, wrapper)
     return inner
@@ -1100,7 +1116,6 @@ def bc_phase(card: str) -> dict:
     import torch
 
     from geometry_rl_torch.config import _merge, load_config, trainer_from_config
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.train import bc, bc_cli, play
     from geometry_rl_torch.train.ppo import Trainer
 
@@ -1111,7 +1126,7 @@ def bc_phase(card: str) -> dict:
                  (bc, "behavior_cloning", counted(bc, "behavior_cloning", counts, "clone")),
                  (Trainer, "eval_rollout", counted(Trainer, "eval_rollout", counts, "eval_rollout")),
                  (Trainer, "eval_success", counted(Trainer, "eval_success", counts, "eval_success"))]
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    since = counter_snapshot()
     try:
         t0 = time.perf_counter()
         history = bc_cli.main(["--config", CLOTH_CONFIG, "--device", "cuda", "--record-steps", "100", "--epochs", "5",
@@ -1122,7 +1137,7 @@ def bc_phase(card: str) -> dict:
     finally:
         for obj, name, inner in originals:
             setattr(obj, name, inner)
-    launches = dict(LAUNCHES)
+    launches = launch_counts(since)
     each = 2 * (10 + 100)
     epoch_s = (counts["clone_s"] - counts["eval_rollout_s"]) / 5
     print(f"[bc] {CLOTH_CONFIG}: bc_cli took {t_cli:.2f} s: recording 100 steps {counts['record_s']:.3f} s, 5 epochs of 39 "
@@ -1216,12 +1231,11 @@ def runner_phase(card: str) -> None:
     same params, normaliser and observation. Neither cloth kernel launches."""
     import torch
 
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.train.runner import OnPolicyRunner
 
     t_phase = time.perf_counter()
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_runner_")
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    since = counter_snapshot()
     runner = OnPolicyRunner("rigid_pushing", log_dir=log_dir, device="cuda")
     t0 = time.perf_counter()
     runner.learn(1)
@@ -1244,13 +1258,13 @@ def runner_phase(card: str) -> None:
     print(f"[runner] OnPolicyRunner(rigid_pushing, hepi, ppo, 256 envs x 24 steps): learn(1) {t_learn:.2f} s, reward "
           f"{row['train/reward']:.3f}, loss_critic {row['loss_critic']:.4f}; save/load bit-exact: {exact}; inference "
           f"policy card vs CPU max |diff| / max(1, scale) = {err:.3e} (tol {SLICE_TOL}); cloth kernel launches "
-          f"{dict(LAUNCHES)}; phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
+          f"{launch_counts(since)}; phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
     if not exact:
         fail("the runner's load did not restore its saved params and Adam state bit-exactly")
     if not err <= SLICE_TOL or not all(abs(v) < float("inf") for k, v in row.items() if k != "train/reward"):
         fail(f"the runner's inference policy disagrees with the CPU's ({err}) or its metrics are not finite: {row}")
-    if LAUNCHES != {"cloth_solve": 0, "cloth_solve_env": 0}:
-        fail(f"the rigid runner launched a cloth kernel: {dict(LAUNCHES)}")
+    if launch_counts(since) != {"cloth_solve": 0, "cloth_solve_env": 0}:
+        fail(f"the rigid runner launched a cloth kernel: {launch_counts(since)}")
     shutil.rmtree(log_dir)
 
 
@@ -1268,7 +1282,6 @@ def render_phase(card: str, steps: int = 100) -> int:
 
     from geometry_rl_torch.config import load_config, trainer_from_config
     from geometry_rl_torch.envs import make_env
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.train.render import collect_frames, record_rollout
 
     t_phase = time.perf_counter()
@@ -1284,14 +1297,14 @@ def render_phase(card: str, steps: int = 100) -> int:
         return step(s, a)
 
     env.step = recording
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    since = counter_snapshot()
     try:
         t0 = time.perf_counter()
         frames = collect_frames(trainer, state, steps)  # timed with this check's per-step copies to the host
         t_frames = time.perf_counter() - t0
     finally:
         del env.step
-    launches = LAUNCHES["cloth_solve"]
+    launches = launch_counts(since)["cloth_solve"]
     expected = 2 * (env.cfg.warmup_steps + steps)
     cpu_env = make_env(cfg["task"], num_envs=1, device="cpu", **(cfg["env"].get("kwargs") or {}))
     worst = {"bodies": 0.0, "particles": 0.0, "hook": 0.0, "task_distance": 0.0}
@@ -1311,8 +1324,8 @@ def render_phase(card: str, steps: int = 100) -> int:
           f"{t_frames:.2f} s; K2's port "
           f"{launches} launches (expected {expected}); each frame vs the CPU's step from the card's state, max |diff| / "
           f"max(1, scale): {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol {SLICE_TOL}); on {card}")
-    if launches != expected or LAUNCHES["cloth_solve_env"] != 0:
-        fail(f"the render path launched {dict(LAUNCHES)}, expected cloth_solve {expected}")
+    if launches != expected or launch_counts(since)["cloth_solve_env"] != 0:
+        fail(f"the render path launched {launch_counts(since)}, expected cloth_solve {expected}")
     if not frames or max(worst.values()) > SLICE_TOL:
         fail(f"the frames disagree with the CPU's steps: {worst}")
     path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_render_"), "episode.gif")
@@ -1530,8 +1543,8 @@ def dp_phase(card: str) -> dict:
 # saved to $FIRST_MINIBATCH, then the cloth kernels' launch counts printed
 DP_WORKER = """
 import json, os, sys, torch
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train import cli, ppo
+from geometry_rl_torch.utils.trace import COUNTERS
 step = ppo.Trainer._minibatch_step
 def first(self, state, mb, *args, **kwargs):
     out = step(self, state, mb, *args, **kwargs)
@@ -1542,7 +1555,7 @@ def first(self, state, mb, *args, **kwargs):
     return out
 ppo.Trainer._minibatch_step = first
 cli.main(sys.argv[1:])
-print("LAUNCHES " + json.dumps(LAUNCHES))
+print("LAUNCHES " + json.dumps({k: COUNTERS.get(f"kernels.{k}", 0) for k in ("cloth_solve", "cloth_solve_env")}))
 """
 
 
@@ -1565,18 +1578,17 @@ def smoke_env_phase(card: str, num_envs: int = 4, steps: int = 3) -> dict:
 
     import torch
 
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.tools import smoke_env
 
     t_phase = time.perf_counter()
     counts = {}
     for task in smoke_env.TASKS:
         out = io.StringIO()
-        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+        since = counter_snapshot()
         with contextlib.redirect_stdout(out):
             env, _, ts = smoke_env.main(["--task", task, "--num-envs", str(num_envs), "--steps", str(steps), "--device", "cuda"])
         torch.cuda.synchronize()
-        counts[task] = dict(LAUNCHES)
+        counts[task] = launch_counts(since)
         expected = {"cloth_solve": 2 * (10 + steps) if task == "cloth_hanging" else 0, "cloth_solve_env": 0}
         lines = out.getvalue().splitlines()
         print(f"[smoke_env] {task}: {lines[0]}; {len(env.obs_spec.names)} observation groups; {lines[-2]}; "
@@ -1600,18 +1612,17 @@ def eval_breakdown_phase(card: str, run_dir: str) -> dict:
     import math
 
     from geometry_rl_torch.envs.rigid import SHAPE_NAMES
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.tools import eval_breakdown
 
     t_phase = time.perf_counter()
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    since = counter_snapshot()
     report = eval_breakdown.main(["--run-dir", run_dir, "--checkpoint", "checkpoints", "--episodes", "1",
                                   "--out", os.path.join(run_dir, "eval_breakdown.json"), "--device", "cuda"])
     per_shape, overall = report["per_shape"], report["overall"]
     seconds = time.perf_counter() - t_phase
     print(f"[eval_breakdown] {os.path.basename(run_dir)}: overall {overall}; per shape "
           + ", ".join(f"{k} {v['episodes']} ep {v['success_rate']:.4f} at {v['mean_final_distance']:.4f}" for k, v in per_shape.items())
-          + f"; cloth kernel launches {dict(LAUNCHES)}; phase took {seconds:.2f} s; on {card}")
+          + f"; cloth kernel launches {launch_counts(since)}; phase took {seconds:.2f} s; on {card}")
     if sorted(per_shape) != sorted(SHAPE_NAMES):
         fail(f"eval_breakdown reported the shapes {sorted(per_shape)}, expected {sorted(SHAPE_NAMES)}")
     if sum(v["episodes"] for v in per_shape.values()) != overall["episodes"] or overall["episodes"] <= 0:
@@ -1619,8 +1630,8 @@ def eval_breakdown_phase(card: str, run_dir: str) -> dict:
     values = [v for entry in (overall, *per_shape.values()) for v in entry.values()]
     if not all(math.isfinite(v) for v in values):
         fail(f"eval_breakdown reported non-finite values: {report}")
-    if any(LAUNCHES.values()):
-        fail(f"eval_breakdown on rigid_insertion launched {dict(LAUNCHES)}")
+    if any(launch_counts(since).values()):
+        fail(f"eval_breakdown on rigid_insertion launched {launch_counts(since)}")
     return report
 
 
@@ -1784,17 +1795,16 @@ def learn_check_phase(card: str, iterations: int = 2) -> dict:
 
     import torch
 
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.tools import learn_check
 
     t_phase = time.perf_counter()
     out = io.StringIO()
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+    since = counter_snapshot()
     with contextlib.redirect_stdout(out):
         learn_check.main(["--task", "cloth_hanging", "--num-envs", "100", "--mini-batch", "200",
                           "--iterations", str(iterations), "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = launch_counts(since)
     expected = {"cloth_solve": 2 * iterations * 100, "cloth_solve_env": 0}
     lines = out.getvalue().splitlines()
     for line in lines:
@@ -1836,18 +1846,16 @@ def bench_phase(card: str, steps: int = 4, runs: int = 1, table_steps: int = 2) 
     import torch
 
     from geometry_rl_torch.envs import cloth_hanging_cfg
-    from geometry_rl_torch.sim.cloth_solve import LAUNCHES
     from geometry_rl_torch.tools import bench, bench_all
 
     def finite_positive(x):
         return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
 
     def counts():
-        return {**LAUNCHES, "segment_sum": segment_counts()[0]}
+        return {**launch_counts(since), "segment_sum": segment_counts(since)[0]}
 
     t_phase = time.perf_counter()
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    reset_segment_counts()
+    since = reset_segment_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(["--steps", str(steps), "--runs", str(runs), "--device", "cuda"])
@@ -1871,19 +1879,19 @@ def bench_phase(card: str, steps: int = 4, runs: int = 1, table_steps: int = 2) 
         fail(f"tools.bench's iteration reported mfu {iteration.get('mfu')} of {iteration.get('flops_per_iter')} FLOPs")
     if {k: launches["bench"][k] for k in expected} != expected:
         fail(f"tools.bench launched {launches['bench']}, expected the cloth kernels {expected}")
-    if not launches["bench"]["segment_sum"] > 0 or segment_counts()[1]:
+    if not launches["bench"]["segment_sum"] > 0 or segment_counts(since)[1]:
         fail(f"tools.bench launched segment_sum {launches['bench']['segment_sum']} times, "
-             f"made {segment_counts()[1]} CSRs on the spot")
-    check_vec16_route("tools.bench")
+             f"made {segment_counts(since)[1]} CSRs on the spot")
+    check_vec16_route("tools.bench", since)
 
     t0 = time.perf_counter()
-    reset_segment_counts()
+    since = reset_segment_counts()
     warmup = cloth_hanging_cfg().warmup_steps
     per_row = 2 * 2 * (warmup + (1 + bench_all.RUNS) * table_steps)
     table, total = {}, {"cloth_solve": 0, "cloth_solve_env": 0}
     with tempfile.TemporaryDirectory() as tmp:
         for task, _, _ in bench_all.TASKS:
-            LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
+            row_since = counter_snapshot()
             path = os.path.join(tmp, f"{task}.json")
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
@@ -1891,7 +1899,7 @@ def bench_phase(card: str, steps: int = 4, runs: int = 1, table_steps: int = 2) 
             torch.cuda.synchronize()
             with open(path) as f:
                 table[task] = json.load(f)[task]
-            row = dict(LAUNCHES)
+            row = launch_counts(row_since)
             expected = {"cloth_solve": per_row if task == "cloth_hanging" else 0,
                         "cloth_solve_env": per_row if task == "cloth_hanging_pallas" else 0}
             print(f"[bench_all] {task} -> {json.dumps(table[task])}; exit {rc}; cloth kernel launches {row} "
@@ -1904,12 +1912,12 @@ def bench_phase(card: str, steps: int = 4, runs: int = 1, table_steps: int = 2) 
             if row != expected:
                 fail(f"tools.bench_all's {task} row launched {row}, expected {expected}")
             total = {k: total[k] + row[k] for k in total}
-    launches["bench_all"] = {**total, "segment_sum": segment_counts()[0]}
+    launches["bench_all"] = {**total, "segment_sum": segment_counts(since)[0]}
     print(f"[bench_all] launches {launches['bench_all']}; {time.perf_counter() - t0:.2f} s")
-    if not launches["bench_all"]["segment_sum"] > 0 or segment_counts()[1]:
+    if not launches["bench_all"]["segment_sum"] > 0 or segment_counts(since)[1]:
         fail(f"tools.bench_all launched segment_sum {launches['bench_all']['segment_sum']} times, "
-             f"made {segment_counts()[1]} CSRs on the spot")
-    check_vec16_route("tools.bench_all")
+             f"made {segment_counts(since)[1]} CSRs on the spot")
+    check_vec16_route("tools.bench_all", since)
     print(f"[bench] phase took {time.perf_counter() - t_phase:.2f} s; on {card}")
     return launches
 
@@ -1983,22 +1991,23 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from geometry_rl_torch.config import load_config, trainer_from_config
-    from geometry_rl_torch.cuda_build import BUILD_INFO, BUILD_SECONDS, load_library
+    from geometry_rl_torch.cuda_build import BUILD_INFO, load_library
     from geometry_rl_torch.envs import make_env
     from geometry_rl_torch.sim.cloth_solve import (
-        LAUNCHES,
         cloth_position_solve_cuda,
         cloth_position_solve_env_cuda,
         cloth_position_solve_ref,
         solve_cost,
     )
+    from geometry_rl_torch.utils.trace import counting, recording
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
-        list(pool.map(load_library, LIBRARIES))
-    print(f"[build] " + ", ".join(f"{n}: {BUILD_SECONDS[n]:.2f} s compiling" for n in LIBRARIES)
-          + f"; {time.perf_counter() - t0:.2f} s in all")
+    with recording() as rec, counting("setup.nvcc_builds") as built, ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(load_library, LIBRARIES))  # one nvcc per source, all at once
+    loads = rec.totals()
+    print(f"[build] " + ", ".join(f"{n}: {loads.get(f'setup.kernel_load.{n}', (0, 0.0))[1]:.2f} s loading" for n in LIBRARIES)
+          + f"; nvcc ran {built['setup.nvcc_builds']} times (0: every build reused); {time.perf_counter() - t0:.2f} s in all")
     for lib in LIBRARIES:
         for kernel, info in BUILD_INFO.get(lib, {}).items():
             print(f"[build] {lib}: {kernel}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
@@ -2056,8 +2065,7 @@ def main() -> int:
     print(f"[slice] cloth_hanging HEPi: {B} envs, latent {cfg['algorithm']['latent_dim']}, "
           f"{cfg['algorithm']['num_ori']} orientations, dtype {cfg['algorithm']['dtype']}, "
           f"{trainer.cfg.steps_per_batch} steps per collect")
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    reset_segment_counts()
+    since = reset_segment_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
@@ -2071,8 +2079,8 @@ def main() -> int:
     success = trainer.eval_success(state, 100, 0.1)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    launches = LAUNCHES["cloth_solve"]
-    segment_launches, on_the_spot = segment_counts()
+    launches = launch_counts(since)["cloth_solve"]
+    segment_launches, on_the_spot = segment_counts(since)
 
     frames = trainer.cfg.steps_per_batch * B
     tensors = {f"batch.{k}": v for k, v in batch._asdict().items() if k != "tobs"}
@@ -2095,12 +2103,12 @@ def main() -> int:
           f"{success['mean_final_distance'].item():.4f}, episodes in collect {stats['train/episodes'].item():.0f}; "
           f"cloth_solve launches {launches} (expected {expected})")
     print(f"[slice] segment_sum launches {segment_launches} (HEPi's message sums), CSRs made on the spot {on_the_spot}")
-    if launches != expected or LAUNCHES["cloth_solve_env"] != 0:
-        fail(f"the rollout path launched {dict(LAUNCHES)}, expected cloth_solve {expected} and cloth_solve_env 0")
+    if launches != expected or launch_counts(since)["cloth_solve_env"] != 0:
+        fail(f"the rollout path launched {launch_counts(since)}, expected cloth_solve {expected} and cloth_solve_env 0")
     if not segment_launches > 0 or on_the_spot:
         fail(f"the rollout path launched segment_sum {segment_launches} times, made {on_the_spot} CSRs on the spot")
-    check_vec16_route("the rollout path")
-    rollout_routes = segment_routes()
+    check_vec16_route("the rollout path", since)
+    rollout_routes = segment_routes(since)
 
     # ---- 5. the slice on a small input against the CPU --------------------
     parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})

@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional
 import torch
 import yaml
 
+from .utils.trace import spanned
+
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "geometry_rl_tpu", "configs")
 
 DEFAULTS: Dict[str, Any] = {
@@ -178,6 +180,7 @@ def available_configs():
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+@spanned("setup.build")
 def trainer_from_config(cfg: Dict, device="cuda", dp=None):
     """Build the Trainer from a loaded config dict. Parameters stay float32;
     activations run in `algorithm.dtype`. With `dp` it is this rank's part

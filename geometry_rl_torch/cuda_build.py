@@ -7,7 +7,8 @@ hash covers the source, every shared header `csrc/*.cuh` and the flags, so
 an edited source or header is rebuilt and a built one is reused. What ptxas
 reports per kernel (registers, shared memory, spills) is kept beside the
 library as `lib<name>-<hash>.json` and in `BUILD_INFO`. Nothing is built at
-import: the first launch of a kernel builds it.
+import: the first launch of a kernel builds it. Loading a library is the
+span `setup.kernel_load.<name>`; each nvcc run counts `setup.nvcc_builds`.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import re
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Dict
+
+from .utils.trace import count, span
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -33,8 +35,6 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# seconds spent compiling per library in this process (0.0 = reused a build)
-BUILD_SECONDS: Dict[str, float] = {}
 # per library, per kernel: what ptxas reported (registers, smem bytes, stack
 # frame bytes, spill store and load bytes)
 BUILD_INFO: Dict[str, Dict[str, Dict[str, int]]] = {}
@@ -91,29 +91,28 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    path = library_path(name)
-    info_path = path[: -len(".so")] + ".json"
-    BUILD_SECONDS[name] = 0.0
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {name}.cu:\n{proc.stderr}")
-            with open(info_path, "w") as f:
-                json.dump(parse_ptxas(proc.stdout + proc.stderr), f)
-            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-    if os.path.exists(info_path):
-        with open(info_path) as f:
-            BUILD_INFO[name] = json.load(f)
-    lib = ctypes.CDLL(path)
-    _LOADED[name] = lib
+    with span(f"setup.kernel_load.{name}"):
+        path = library_path(name)
+        info_path = path[: -len(".so")] + ".json"
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed building {name}.cu:\n{proc.stderr}")
+                with open(info_path, "w") as f:
+                    json.dump(parse_ptxas(proc.stdout + proc.stderr), f)
+                os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            count("setup.nvcc_builds")
+        if os.path.exists(info_path):
+            with open(info_path) as f:
+                BUILD_INFO[name] = json.load(f)
+        lib = ctypes.CDLL(path)
+        _LOADED[name] = lib
     return lib

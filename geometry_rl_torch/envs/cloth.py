@@ -37,6 +37,7 @@ from ..sim.xpbd import (
     step_physics,
 )
 from ..utils.math import quat_apply, quat_from_euler_xyz, quat_identity, sample_uniform
+from ..utils.trace import span, spanned
 from .base import ObsSpec, TimeStep
 
 N_ROW = 15  # num_particles_per_row
@@ -409,6 +410,7 @@ class ClothEnv:
         )
         return scene, hanger
 
+    @spanned("envs.reset")
     def reset(self, generator: torch.Generator) -> ClothEnvState:
         cfg = self.cfg
         scene, hanger = self._initial_layout(generator)
@@ -472,26 +474,28 @@ class ClothEnv:
         body_lin_damp, part_damp = self.body_lin_damp, self.part_damp
         hanger_pos = hanger_pos.contiguous()
         for _ in range(cfg.decimation):
-            bodies, parts = scene.bodies, scene.particles
-            # integrate (grippers have gravity_scale 0)
-            prev_b = bodies.pos
-            pos_b = bodies.pos + dt * (bodies.lin_vel * body_lin_damp)
-            pv = (parts.vel + self.gravity_dv) * part_damp
-            prev_p = parts.pos
-            x_p = parts.pos + dt * pv
-
-            x = torch.cat([x_p, pos_b], dim=1)
-            prev_x = torch.cat([prev_p, prev_b], dim=1)
-            x = cloth_position_solve(
-                self.solve_spec, x, prev_x, self.inv_all, hanger_pos, self.att_body_w,
-                self.corner_indices, self.groups, self.self_pair_mask_full, self.self_active_full,
-                kernel="tiled" if self.solver_mode == "tiled" else "per_env",
-            )
-            new_p, new_b = x[:, :P], x[:, P:]
-            scene = SceneState(
-                bodies=bodies._replace(pos=new_b, lin_vel=(new_b - prev_b) / dt, ang_vel=torch.zeros_like(bodies.ang_vel)),
-                particles=ParticleState(pos=new_p, vel=(new_p - prev_p) / dt),
-            )
+            with span("sim.substep"):
+                bodies, parts = scene.bodies, scene.particles
+                with span("sim.integrate"):  # grippers have gravity_scale 0
+                    prev_b = bodies.pos
+                    pos_b = bodies.pos + dt * (bodies.lin_vel * body_lin_damp)
+                    pv = (parts.vel + self.gravity_dv) * part_damp
+                    prev_p = parts.pos
+                    x_p = parts.pos + dt * pv
+                    x = torch.cat([x_p, pos_b], dim=1)
+                    prev_x = torch.cat([prev_p, prev_b], dim=1)
+                x = cloth_position_solve(
+                    self.solve_spec, x, prev_x, self.inv_all, hanger_pos, self.att_body_w,
+                    self.corner_indices, self.groups, self.self_pair_mask_full, self.self_active_full,
+                    kernel="tiled" if self.solver_mode == "tiled" else "per_env",
+                )
+                with span("sim.velocity"):
+                    new_p, new_b = x[:, :P], x[:, P:]
+                    scene = SceneState(
+                        bodies=bodies._replace(pos=new_b, lin_vel=(new_b - prev_b) / dt,
+                                               ang_vel=torch.zeros_like(bodies.ang_vel)),
+                        particles=ParticleState(pos=new_p, vel=(new_p - prev_p) / dt),
+                    )
         return scene
 
     # ------------------------------------------------------------- obs/reward
@@ -561,33 +565,39 @@ class ClothEnv:
             + cfg.action_rate_weight * act_rate
         )
 
+    @spanned("envs.step")
     def step(self, state: ClothEnvState, action: torch.Tensor) -> Tuple[ClothEnvState, TimeStep]:
         cfg = self.cfg
-        scene = self._apply_action(state.scene, action)
-        scene = self._physics(scene, state.hanger_pos)
+        with span("envs.action"):
+            scene = self._apply_action(state.scene, action)
+        with span("envs.physics"):
+            scene = self._physics(scene, state.hanger_pos)
         stepped = state._replace(scene=scene, episode_step=state.episode_step + 1)
 
-        reward = self._reward(stepped, action)
-        done = stepped.episode_step >= cfg.episode_length
+        with span("envs.reward"):
+            reward = self._reward(stepped, action)
+            done = stepped.episode_step >= cfg.episode_length
 
         # done envs restart from a fresh layout (drawn every step, as the
         # reference does, so the generator advances the same way)
-        fresh, fresh_hanger = self._initial_layout(state.generator)
-        d1, d3 = done[:, None], done[:, None, None]
-        new_scene = SceneState(
-            bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies))),
-            particles=ParticleState(*(torch.where(d3, f, s) for f, s in zip(fresh.particles, scene.particles))),
-        )
-        new_state = ClothEnvState(
-            scene=new_scene,
-            hanger_pos=torch.where(d1, fresh_hanger, stepped.hanger_pos),
-            episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
-            generator=state.generator,
-            prev_action=torch.where(d1, 0.0, action),
-        )
-        obs = self._observe(new_state)
-        # success metric: hole centroid -> hook distance at this step (pre-reset)
-        hole_dist = torch.linalg.vector_norm(self._hole_centroid(stepped.scene.particles.pos) - stepped.hanger_pos, dim=-1)
+        with span("envs.reset_draw"):
+            fresh, fresh_hanger = self._initial_layout(state.generator)
+            d1, d3 = done[:, None], done[:, None, None]
+            new_scene = SceneState(
+                bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies))),
+                particles=ParticleState(*(torch.where(d3, f, s) for f, s in zip(fresh.particles, scene.particles))),
+            )
+            new_state = ClothEnvState(
+                scene=new_scene,
+                hanger_pos=torch.where(d1, fresh_hanger, stepped.hanger_pos),
+                episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
+                generator=state.generator,
+                prev_action=torch.where(d1, 0.0, action),
+            )
+        with span("envs.observe"):
+            obs = self._observe(new_state)
+            # success metric: hole centroid -> hook distance at this step (pre-reset)
+            hole_dist = torch.linalg.vector_norm(self._hole_centroid(stepped.scene.particles.pos) - stepped.hanger_pos, dim=-1)
         return new_state, TimeStep(
             obs=obs,
             reward=reward,

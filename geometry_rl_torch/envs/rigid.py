@@ -35,6 +35,7 @@ from ..utils.math import (
     sample_uniform,
     transform_points,
 )
+from ..utils.trace import span, spanned
 from .base import ObsSpec, TimeStep
 
 
@@ -347,6 +348,7 @@ class RigidEnv:
         zeros = torch.zeros_like(pos)
         return SceneState(bodies=RigidBodyState(pos=pos, quat=torch.stack(quat, dim=1), lin_vel=zeros, ang_vel=zeros))
 
+    @spanned("envs.reset")
     def reset(self, generator: torch.Generator) -> RigidEnvState:
         cfg = self.cfg
         scene = self._assemble_scene(*self._sample_poses(generator))
@@ -510,27 +512,34 @@ class RigidEnv:
 
     # -------------------------------------------------------------- full step
 
+    @spanned("envs.step")
     def step(self, state: RigidEnvState, action: torch.Tensor) -> Tuple[RigidEnvState, TimeStep]:
         cfg = self.cfg
-        scene = self._physics(self._apply_action(state.scene, action))
+        with span("envs.action"):
+            scene = self._apply_action(state.scene, action)
+        with span("envs.physics"):
+            scene = self._physics(scene)
         stepped = state._replace(scene=scene, episode_step=state.episode_step + 1)
 
-        reward = self._reward(stepped, action)
-        done = stepped.episode_step >= cfg.episode_length
+        with span("envs.reward"):
+            reward = self._reward(stepped, action)
+            done = stepped.episode_step >= cfg.episode_length
 
         # done envs restart from fresh poses, drawn for every env on every
         # step (no warmup on auto-reset, as in the reference)
-        fresh = self._assemble_scene(*self._sample_poses(state.generator))
-        d3 = done[:, None, None]
-        new_state = RigidEnvState(
-            scene=SceneState(bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies)))),
-            episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
-            generator=state.generator,
-            prev_action=torch.where(done[:, None], 0.0, action),
-        )
-        obs = self._observe(new_state)
-        # pre-reset object -> target distance: the task-success diagnostic
-        dist = torch.linalg.vector_norm(scene.bodies.pos[:, cfg.object_body] - scene.bodies.pos[:, cfg.target_body], dim=-1)
+        with span("envs.reset_draw"):
+            fresh = self._assemble_scene(*self._sample_poses(state.generator))
+            d3 = done[:, None, None]
+            new_state = RigidEnvState(
+                scene=SceneState(bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies)))),
+                episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
+                generator=state.generator,
+                prev_action=torch.where(done[:, None], 0.0, action),
+            )
+        with span("envs.observe"):
+            obs = self._observe(new_state)
+            # pre-reset object -> target distance: the task-success diagnostic
+            dist = torch.linalg.vector_norm(scene.bodies.pos[:, cfg.object_body] - scene.bodies.pos[:, cfg.target_body], dim=-1)
         info = {"episode_step": new_state.episode_step, "object_target_distance": dist}
         return new_state, TimeStep(obs=obs, reward=reward, done=done, info=info)
 

@@ -45,6 +45,7 @@ from ..sim.xpbd import (
     step_physics,
 )
 from ..utils.math import quat_identity, sample_uniform
+from ..utils.trace import span, spanned
 from .base import ObsSpec, TimeStep
 
 
@@ -380,6 +381,7 @@ class RopeEnv:
         )
         return scene, target_yaw, hanger_xy
 
+    @spanned("envs.reset")
     def reset(self, generator: torch.Generator) -> RopeEnvState:
         cfg = self.cfg
         scene, target_yaw, hanger_xy = self._initial_layout(generator)
@@ -481,37 +483,44 @@ class RopeEnv:
             + cfg.closing_action_rate_weight * act_rate
         )
 
+    @spanned("envs.step")
     def step(self, state: RopeEnvState, action: torch.Tensor) -> Tuple[RopeEnvState, TimeStep]:
         cfg = self.cfg
-        scene = self._physics(self._apply_action(state.scene, action), state.hanger_xy)
+        with span("envs.action"):
+            scene = self._apply_action(state.scene, action)
+        with span("envs.physics"):
+            scene = self._physics(scene, state.hanger_xy)
         stepped = state._replace(scene=scene, episode_step=state.episode_step + 1)
 
-        reward = self._reward(stepped, action)
-        done = stepped.episode_step >= cfg.episode_length
+        with span("envs.reward"):
+            reward = self._reward(stepped, action)
+            done = stepped.episode_step >= cfg.episode_length
 
         # done envs restart from a fresh layout, drawn for every env on every
         # step (no warm-up on auto-reset, as in the reference)
-        fresh, fresh_yaw, fresh_hxy = self._initial_layout(state.generator)
-        d1, d3 = done[:, None], done[:, None, None]
-        new_state = RopeEnvState(
-            scene=SceneState(
-                bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies))),
-                particles=ParticleState(*(torch.where(d3, f, s) for f, s in zip(fresh.particles, scene.particles))),
-            ),
-            target_yaw=torch.where(done, fresh_yaw, stepped.target_yaw),
-            hanger_xy=torch.where(d1, fresh_hxy, stepped.hanger_xy),
-            episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
-            generator=state.generator,
-            prev_action=torch.where(d1, 0.0, action),
-        )
-        obs = self._observe(new_state)
-        # success metric on the pre-reset state: closing -> the grippers'
-        # planar gap; shaping -> RMS shape-descriptor error against the target
-        if cfg.is_shaping:
-            task_dist = torch.sqrt(self._shape_error(stepped))
-        else:
-            grip = scene.bodies.pos
-            task_dist = torch.linalg.vector_norm(grip[:, 0, :2] - grip[:, 1, :2], dim=-1)
+        with span("envs.reset_draw"):
+            fresh, fresh_yaw, fresh_hxy = self._initial_layout(state.generator)
+            d1, d3 = done[:, None], done[:, None, None]
+            new_state = RopeEnvState(
+                scene=SceneState(
+                    bodies=RigidBodyState(*(torch.where(d3, f, s) for f, s in zip(fresh.bodies, scene.bodies))),
+                    particles=ParticleState(*(torch.where(d3, f, s) for f, s in zip(fresh.particles, scene.particles))),
+                ),
+                target_yaw=torch.where(done, fresh_yaw, stepped.target_yaw),
+                hanger_xy=torch.where(d1, fresh_hxy, stepped.hanger_xy),
+                episode_step=torch.where(done, 0, stepped.episode_step).to(torch.int32),
+                generator=state.generator,
+                prev_action=torch.where(d1, 0.0, action),
+            )
+        with span("envs.observe"):
+            obs = self._observe(new_state)
+            # success metric on the pre-reset state: closing -> the grippers'
+            # planar gap; shaping -> RMS shape-descriptor error against the target
+            if cfg.is_shaping:
+                task_dist = torch.sqrt(self._shape_error(stepped))
+            else:
+                grip = scene.bodies.pos
+                task_dist = torch.linalg.vector_norm(grip[:, 0, :2] - grip[:, 1, :2], dim=-1)
         info = {"episode_step": new_state.episode_step, "object_target_distance": task_dist}
         return new_state, TimeStep(obs=obs, reward=reward, done=done, info=info)
 

@@ -31,12 +31,11 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..graphs.types import CSR, ON_THE_SPOT, csr_or_on_the_spot  # noqa: F401
+from ..utils.trace import count, spanned
 
-# the kernel's routes, by the number the C entry takes
+# the kernel's routes, by the number the C entry takes; each launch counts
+# `kernels.segment_sum` and `kernels.segment_sum.<route>`
 ROUTES = ("vec16", "scalar")
-# kernel launches since the last reset, counted where the kernel launches: in
-# all, and per route (`segment_sum_vec16`, `segment_sum_scalar`)
-LAUNCHES = {"segment_sum": 0, **{f"segment_sum_{r}": 0 for r in ROUTES}}
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry `segment_sum_launch`: 4 pointers, 14 ints, the stream
@@ -201,11 +200,12 @@ def segment_sum_cuda(values: torch.Tensor, csr: CSR, plan: LaunchPlan | None = N
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed ({plan.route} route): CUDA error {err}")
-    LAUNCHES["segment_sum"] += 1
-    LAUNCHES[f"segment_sum_{plan.route}"] += 1
+    count("kernels.segment_sum")
+    count(f"kernels.segment_sum.{plan.route}")
     return out
 
 
+@spanned("kernels.segment_sum")
 def segment_sum(values: torch.Tensor, csr: CSR) -> torch.Tensor:
     """values [B, E, F] summed into [B, N, F] in `csr`'s order: the kernel for
     CUDA tensors, the plain version for CPU tensors."""

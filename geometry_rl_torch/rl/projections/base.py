@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...parallel.mesh import batch_mean
+from ...utils.trace import spanned
 from ..gaussian import DiagGaussian, entropy, frobenius_parts, kl_parts, wasserstein_parts
 from .kl import kl_diag_cov_projection
 
@@ -70,6 +71,7 @@ class BaseProjection:
     entropy_eq: bool = False
     entropy_first: bool = False
 
+    @spanned("rl.projection")
     def __call__(self, p: DiagGaussian, q: DiagGaussian, step=0, initial_entropy: Optional[torch.Tensor] = None) -> DiagGaussian:
         beta = self.entropy_bound(step, initial_entropy, p.mean)
         entropy_proj = entropy_equality_projection if self.entropy_eq else entropy_inequality_projection

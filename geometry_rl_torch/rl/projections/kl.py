@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.trace import spanned
+
 _BISECT_ITERS = 60  # 2^-60 relative bracket width, beyond f32 resolution
 _ETA_MAX = 1e12
 
@@ -34,6 +36,7 @@ def _interp_var(var: torch.Tensor, old_var: torch.Tensor, eta: torch.Tensor) -> 
     return (1.0 + eta) / (1.0 / var + eta / old_var)
 
 
+@spanned("rl.kl_bisection")
 def _solve_eta(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """Bisection for eta per batch element on [0, ETA_MAX]; eta = 0 where
     the constraint already holds at eta = 0."""

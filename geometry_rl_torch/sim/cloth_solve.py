@@ -16,6 +16,9 @@ to point dynamics). Each iteration runs: one compliant distance solve per
 conflict-free group, the optional all-pairs self-collision pass, the rest-0
 corner <-> gripper attachments, and the capsule hook contact with Coulomb
 friction on cloth particles only.
+
+A call of the env's solve is the span `kernels.cloth_solve`; each launch
+counts `kernels.cloth_solve` or `kernels.cloth_solve_env`.
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# kernel launches since the last reset, counted where the kernel launches
-LAUNCHES = {"cloth_solve": 0, "cloth_solve_env": 0}
+from ..utils.trace import count, spanned
 
 # the kernels' limits (`csrc/cloth_solve_common.cuh`): a CTA of KERNEL_THREADS
 # threads per env, thread t owns constraint t of every group and particles t
@@ -386,7 +388,7 @@ def _launch(name: str, out: torch.Tensor, args: list) -> torch.Tensor:
         err = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count(f"kernels.{name}")
     return out
 
 
@@ -407,6 +409,7 @@ def cloth_position_solve_env_cuda(spec: ClothSolveSpec, x: torch.Tensor, *operan
 KERNELS = {"tiled": cloth_position_solve_cuda, "per_env": cloth_position_solve_env_cuda}
 
 
+@spanned("kernels.cloth_solve")
 def cloth_position_solve(spec: ClothSolveSpec, x: torch.Tensor, *args, kernel: str = "tiled", **kwargs) -> torch.Tensor:
     """The env's solve: for CUDA tensors the kernel named by `kernel`
     ("tiled": K2's port, "per_env": K1's), for CPU tensors the plain version,

@@ -35,6 +35,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..utils.math import quat_apply, quat_conjugate, quat_mul, quat_normalize
+from ..utils.trace import span, spanned
 from .types import FixedJointSpec, ParticleState, RigidBodySpec, RigidBodyState, SceneState
 
 GRAVITY_MAG = 9.81
@@ -655,6 +656,7 @@ def _velocity_pass_particle_contact(vel, x, v_pre, inv_mass, pc: ParticleSDFCont
 # ---------------------------------------------------------------------------
 
 
+@spanned("sim.substep")
 def xpbd_substep(
     state: SceneState,
     body_spec: RigidBodySpec,
@@ -673,36 +675,40 @@ def xpbd_substep(
     gyroscopic: bool = False,
 ) -> SceneState:
     """One physics substep (dt = sim.dt, run `decimation` times per control
-    step)."""
+    step). Its parts are spans: `sim.integrate`, per iteration one
+    `sim.joints`, one `sim.contacts` per body contact set, one
+    `sim.pair_contacts` per pair contact and one `sim.particles`, then
+    `sim.velocity`."""
     bodies = state.bodies
 
     # 1. integrate -----------------------------------------------------------
-    gravity = torch.zeros(3, dtype=bodies.lin_vel.dtype, device=bodies.lin_vel.device)
-    gravity[2].fill_(-GRAVITY_MAG)  # a fill kernel; `gravity[2] = x` would copy x from the host and synchronise
-    lin_damp = torch.exp(-body_spec.lin_damping * dt)
-    ang_damp = torch.exp(-body_spec.ang_damping * dt)
-    v = (bodies.lin_vel + dt * gravity * body_spec.gravity_scale[:, None]) * lin_damp[:, None]
-    w = bodies.ang_vel * ang_damp[:, None]
-    v = torch.clamp(v * body_spec.free_pos, -max_velocity, max_velocity)
-    if gyroscopic:
-        w = _gyroscopic_step(bodies.quat, w, body_spec.inv_inertia, dt)
-    w = w * body_spec.free_rot
+    with span("sim.integrate"):
+        gravity = torch.zeros(3, dtype=bodies.lin_vel.dtype, device=bodies.lin_vel.device)
+        gravity[2].fill_(-GRAVITY_MAG)  # a fill kernel; `gravity[2] = x` would copy x from the host and synchronise
+        lin_damp = torch.exp(-body_spec.lin_damping * dt)
+        ang_damp = torch.exp(-body_spec.ang_damping * dt)
+        v = (bodies.lin_vel + dt * gravity * body_spec.gravity_scale[:, None]) * lin_damp[:, None]
+        w = bodies.ang_vel * ang_damp[:, None]
+        v = torch.clamp(v * body_spec.free_pos, -max_velocity, max_velocity)
+        if gyroscopic:
+            w = _gyroscopic_step(bodies.quat, w, body_spec.inv_inertia, dt)
+        w = w * body_spec.free_rot
 
-    prev_pos, prev_quat = bodies.pos, bodies.quat
-    pos = bodies.pos + dt * v
-    w_quat = torch.cat([torch.zeros_like(w[..., :1]), w], dim=-1)
-    quat = quat_normalize(bodies.quat + 0.5 * dt * quat_mul(w_quat, bodies.quat))
-    pred_pos, pred_quat = pos, quat  # the prediction before the solve (velocity pass)
+        prev_pos, prev_quat = bodies.pos, bodies.quat
+        pos = bodies.pos + dt * v
+        w_quat = torch.cat([torch.zeros_like(w[..., :1]), w], dim=-1)
+        quat = quat_normalize(bodies.quat + 0.5 * dt * quat_mul(w_quat, bodies.quat))
+        pred_pos, pred_quat = pos, quat  # the prediction before the solve (velocity pass)
 
-    if particle_spec is not None and state.particles is not None:
-        parts = state.particles
-        pv = parts.vel + dt * gravity * (particle_spec.inv_mass > 0)[..., None]
-        if particle_spec.lin_damping:
-            pv = pv * math.exp(-particle_spec.lin_damping * dt)
-        prev_x = parts.pos
-        x = parts.pos + dt * pv
-    else:
-        x = prev_x = pv = None
+        if particle_spec is not None and state.particles is not None:
+            parts = state.particles
+            pv = parts.vel + dt * gravity * (particle_spec.inv_mass > 0)[..., None]
+            if particle_spec.lin_damping:
+                pv = pv * math.exp(-particle_spec.lin_damping * dt)
+            prev_x = parts.pos
+            x = parts.pos + dt * pv
+        else:
+            x = prev_x = pv = None
 
     # normal lambdas summed over the iterations, only for the contacts that
     # run a velocity pass
@@ -711,53 +717,58 @@ def xpbd_substep(
     # 2. position solve --------------------------------------------------------
     for _ in range(iterations):
         if joints is not None:
-            pos, quat = _solve_fixed_joints(pos, quat, body_spec, joints)
+            with span("sim.joints"):
+                pos, quat = _solve_fixed_joints(pos, quat, body_spec, joints)
         for contact in contacts:
-            pos, quat, lam_n = _solve_body_contacts(pos, quat, prev_pos, prev_quat, body_spec, contact)
-            if id(contact) in lam_acc:
-                lam_acc[id(contact)] = lam_acc[id(contact)] + lam_n
+            with span("sim.contacts"):
+                pos, quat, lam_n = _solve_body_contacts(pos, quat, prev_pos, prev_quat, body_spec, contact)
+                if id(contact) in lam_acc:
+                    lam_acc[id(contact)] = lam_acc[id(contact)] + lam_n
         for contact in pair_contacts:
-            pos, quat, lam_n = _solve_body_pair_contact(pos, quat, body_spec, contact)
-            if id(contact) in lam_acc:
-                lam_acc[id(contact)] = lam_acc[id(contact)] + lam_n
+            with span("sim.pair_contacts"):
+                pos, quat, lam_n = _solve_body_pair_contact(pos, quat, body_spec, contact)
+                if id(contact) in lam_acc:
+                    lam_acc[id(contact)] = lam_acc[id(contact)] + lam_n
         if x is not None:
-            for group in distance_groups:
-                x = _solve_distance_group(x, particle_spec.inv_mass, group, dt)
-            for sc in self_contacts:
-                x = _solve_self_contacts(x, particle_spec.inv_mass, sc)
-            if attachments is not None:
-                x, pos, quat = _solve_attachments(x, particle_spec.inv_mass, pos, quat, body_spec, attachments)
-            for pc in particle_contacts:
-                x, depth = _solve_particle_contact(x, prev_x, pc)
-                if id(pc) in lam_acc:
-                    lam_acc[id(pc)] = lam_acc[id(pc)] + depth
+            with span("sim.particles"):
+                for group in distance_groups:
+                    x = _solve_distance_group(x, particle_spec.inv_mass, group, dt)
+                for sc in self_contacts:
+                    x = _solve_self_contacts(x, particle_spec.inv_mass, sc)
+                if attachments is not None:
+                    x, pos, quat = _solve_attachments(x, particle_spec.inv_mass, pos, quat, body_spec, attachments)
+                for pc in particle_contacts:
+                    x, depth = _solve_particle_contact(x, prev_x, pc)
+                    if id(pc) in lam_acc:
+                        lam_acc[id(pc)] = lam_acc[id(pc)] + depth
 
-    # 3. velocity recovery -----------------------------------------------------
-    new_v = (pos - prev_pos) / dt * body_spec.free_pos
-    dq_vel = quat_mul(quat, quat_conjugate(prev_quat))
-    sign = torch.sign(dq_vel[..., :1] + 1e-12)
-    new_w = 2.0 * dq_vel[..., 1:] * sign / dt * body_spec.free_rot
+    with span("sim.velocity"):
+        # 3. velocity recovery -------------------------------------------------
+        new_v = (pos - prev_pos) / dt * body_spec.free_pos
+        dq_vel = quat_mul(quat, quat_conjugate(prev_quat))
+        sign = torch.sign(dq_vel[..., :1] + 1e-12)
+        new_w = 2.0 * dq_vel[..., 1:] * sign / dt * body_spec.free_rot
 
-    # 4. velocity pass, only for the contacts that ask for it ------------------
-    for contact in contacts:
-        if id(contact) in lam_acc:
-            new_v, new_w = _velocity_pass_body_contact(
-                new_v, new_w, pos, quat, pred_pos, pred_quat, v, w, body_spec, contact, lam_acc[id(contact)], dt
-            )
-    for contact in pair_contacts:
-        if id(contact) in lam_acc:
-            new_v, new_w = _velocity_pass_body_pair_contact(
-                new_v, new_w, pos, quat, pred_pos, pred_quat, v, w, body_spec, contact, lam_acc[id(contact)], dt
-            )
+        # 4. velocity pass, only for the contacts that ask for it --------------
+        for contact in contacts:
+            if id(contact) in lam_acc:
+                new_v, new_w = _velocity_pass_body_contact(
+                    new_v, new_w, pos, quat, pred_pos, pred_quat, v, w, body_spec, contact, lam_acc[id(contact)], dt
+                )
+        for contact in pair_contacts:
+            if id(contact) in lam_acc:
+                new_v, new_w = _velocity_pass_body_pair_contact(
+                    new_v, new_w, pos, quat, pred_pos, pred_quat, v, w, body_spec, contact, lam_acc[id(contact)], dt
+                )
 
-    new_bodies = RigidBodyState(pos=pos, quat=quat, lin_vel=new_v, ang_vel=new_w)
-    if x is None:
-        return SceneState(bodies=new_bodies, particles=state.particles)
-    new_pv = (x - prev_x) / dt
-    for pc in particle_contacts:
-        if id(pc) in lam_acc:
-            new_pv = _velocity_pass_particle_contact(new_pv, x, pv, particle_spec.inv_mass, pc, lam_acc[id(pc)], dt)
-    return SceneState(bodies=new_bodies, particles=ParticleState(pos=x, vel=new_pv))
+        new_bodies = RigidBodyState(pos=pos, quat=quat, lin_vel=new_v, ang_vel=new_w)
+        if x is None:
+            return SceneState(bodies=new_bodies, particles=state.particles)
+        new_pv = (x - prev_x) / dt
+        for pc in particle_contacts:
+            if id(pc) in lam_acc:
+                new_pv = _velocity_pass_particle_contact(new_pv, x, pv, particle_spec.inv_mass, pc, lam_acc[id(pc)], dt)
+        return SceneState(bodies=new_bodies, particles=ParticleState(pos=x, vel=new_pv))
 
 
 def step_physics(state: SceneState, body_spec: RigidBodySpec, dt: float, decimation: int, **kwargs) -> SceneState:

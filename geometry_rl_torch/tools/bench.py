@@ -16,7 +16,8 @@ another accelerator, and none is set for the card. `extra` carries the card's
 power limit (nvidia-smi), which bounds every number here. Times are host
 clock seconds, each window ending in a device synchronize; the first run of
 each measurement is an untimed warm-up, and the first of them builds the
-kernels (`extra["kernel_build_s"]`, nvcc's seconds per library).
+kernels (`extra["nvcc_builds"]`: the libraries nvcc compiled, 0 where every
+build was reused).
 """
 
 from __future__ import annotations
@@ -207,8 +208,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
 
-    from ..cuda_build import BUILD_SECONDS
     from ..train.cli import resolve_device
+    from ..utils.trace import COUNTERS
 
     device = resolve_device(args.device)
     size = dict(TINY if args.tiny or os.environ.get("GEOMRL_BENCH_TINY") == "1" else FULL)
@@ -230,8 +231,8 @@ def main(argv=None) -> dict:
         "device_kind": device_kind(device),
         "baseline": "none set for the card",
         "sizes": size,
-        # the first warm-up run's kernel builds (0.0: reused from geometry_rl_torch/_build/), outside every timed run
-        "kernel_build_s": dict(BUILD_SECONDS),
+        # the first warm-up run's kernel builds (0: reused from geometry_rl_torch/_build/), outside every timed run
+        "nvcc_builds": COUNTERS.get("setup.nvcc_builds", 0),
     }
     if device.type == "cuda":
         extra["power_limit_w"] = power_limit_w()

@@ -36,6 +36,7 @@ from ..rl.losses import LossInputs, adapt_kl_beta, kl_pen_ppo_loss, ppo_clip_los
 from ..rl.obs_pipeline import ObsNormState, obs_norm_apply, obs_norm_init, obs_norm_step
 from ..rl.projections import BaseProjection
 from ..rl.projections.papi import PAPIState, find_papi_paths, papi_init_state, papi_steps
+from ..utils.trace import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +147,7 @@ class Trainer:
     # ------------------------------------------------------------------ init
 
     @torch.no_grad()
+    @spanned("setup.init")
     def init(self, generator: torch.Generator) -> TrainState:
         env = self.env
         g_env, g_actor, g_critic, g_rest = split_generator(generator, 4)
@@ -192,13 +194,19 @@ class Trainer:
 
     # --------------------------------------------------------------- forward
 
+    @spanned("train.policy")
     def _policy_dist(self, tobs, env_ids=None, noise_generator=None) -> G.DiagGaussian:
-        graph, feats = self.policy_builder.build(tobs, env_ids, noise_generator)
-        return self.policy(graph, feats)
+        with span("graphs.build"):
+            graph, feats = self.policy_builder.build(tobs, env_ids, noise_generator)
+        with span("models.forward"):
+            return self.policy(graph, feats)
 
+    @spanned("train.critic")
     def _value(self, tobs, env_ids=None, noise_generator=None) -> torch.Tensor:
-        graph, feats = self.critic_builder.build(tobs, env_ids, noise_generator)
-        return self.critic(graph, feats)
+        with span("graphs.build"):
+            graph, feats = self.critic_builder.build(tobs, env_ids, noise_generator)
+        with span("models.forward"):
+            return self.critic(graph, feats)
 
     # --------------------------------------------------------------- collect
 
@@ -317,6 +325,7 @@ class Trainer:
         for group, lr in zip(opt.param_groups, lrs):
             group["lr"] = lr
 
+    @spanned("train.minibatch")
     def _minibatch_step(self, state: TrainState, mb: Dict, num_updates: int, kl_beta: Optional[torch.Tensor] = None,
                         lr_scale: Optional[float] = None) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
         """Loss, backward, and one Adam step of actor and critic. Returns the
@@ -325,7 +334,8 @@ class Trainer:
         state.critic_opt.zero_grad(set_to_none=True)
         with global_batch(self.dp, self.mini_batch_size):
             loss, (metrics, kl_beta) = self._minibatch_loss(mb, num_updates, state.initial_entropy, kl_beta)
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if self.dp is not None:
             # each rank's loss is its share of the minibatch mean: the summed
@@ -337,8 +347,9 @@ class Trainer:
         # pre-clip gradient magnitude; `_max` aggregates as a max below
         gn = global_norm([p.grad for p in self.policy.parameters() if p.grad is not None])
         metrics["grad_norm_actor"] = metrics["grad_norm_actor_max"] = gn
-        self._optimizer_step(state.actor_opt, num_updates, lr_scale)
-        self._optimizer_step(state.critic_opt, num_updates, lr_scale)
+        with span("train.optimizer"):
+            self._optimizer_step(state.actor_opt, num_updates, lr_scale)
+            self._optimizer_step(state.critic_opt, num_updates, lr_scale)
         return metrics, kl_beta
 
     # metrics the losses compute from replicated or already global values

@@ -10,10 +10,10 @@ then prints:
   - under `torch.profiler` over the same window: device kernels per minibatch,
     the device's busy and idle share of the window's wall time, the device
     kernels, device time and host time per minibatch of each part of the step
-    (forward, projection, the rest of the loss, backward, gradient clip,
-    Adam, and what is left: zero_grad and the logged gradient norm), the
-    device and host time inside the KL projection's bisection
-    (`kl_bisection` range), and the kernels with the most device time.
+    (`PARTS`: forward, projection, backward, optimizer (gradient clip and
+    Adam), and what is left: zero_grad, the loss's own ops and the logged
+    gradient norm), the device and host time inside the KL projection's
+    bisection (`rl.kl_bisection`), and the kernels with the most device time.
     Clipped PPO and KL-penalty PPO (`algo=ppo|kl_ppo`) have no projection:
     their projection and bisection parts count 0;
   - with `algorithm.objective.papi_steps=true`, PAPI's post-update steps as
@@ -24,9 +24,12 @@ then prints:
     step, the device's busy and idle share, the device and host time under
     the env step, the policy and the critic, and the ops and kernels with
     the most device time (`collect_window`).
-Both windows also count the port's own kernels per step (`PORT_KERNELS`,
-by name). `update_window(trainer, state, n)` and `collect_window(trainer,
-state, steps)` are the windows alone, for callers that have a trainer.
+The parts are the program's own spans (`utils/trace.py`), recorded with
+`recording()` while the profiler runs, so that each shows on the profiler's
+timeline; host times are the recording's. Both windows also count the port's
+own kernels per step (`PORT_KERNELS`, by name). `update_window(trainer,
+state, n)` and `collect_window(trainer, state, steps)` are the windows
+alone, for callers that have a trainer.
 It needs a card and raises without one.
 """
 
@@ -34,49 +37,56 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
-# the parts of a minibatch step, in the order they run; "clip" is
-# `_optimizer_step` less the optimizers' own `step` ("adam"), "loss" is
-# `_minibatch_loss` less its forwards and its projection
-PARTS = ("forward", "projection", "loss", "backward", "clip", "adam", "other")
+from ..utils.trace import recording
+
+# the parts of a minibatch step, each the program's spans (`utils/trace.py`):
+# "forward" is `train.policy` and `train.critic`, "projection" is
+# `rl.projection` (which holds `rl.kl_bisection`), "optimizer" is
+# `train.optimizer` (the gradient clip and both Adam steps), and "other" is
+# what is left: zero_grad, the loss's own ops and the logged gradient norm
+PARTS = ("forward", "projection", "backward", "optimizer", "other")
+PART_SPANS = {"forward": ("train.policy", "train.critic"), "projection": ("rl.projection",),
+              "backward": ("train.backward",), "optimizer": ("train.optimizer",)}
+# the spans of a control step that the collect window reports
+COLLECT_SPANS = ("envs.step", "train.policy", "train.critic")
 # the length of the profiled collect, in control steps
 COLLECT_STEPS = 2
 # the device functions of `csrc/`, counted by name in each window
 PORT_KERNELS = ("cloth_solve_kernel", "cloth_solve_env_kernel", "segment_sum_kernel")
 
 
-class _RangedProjection:
-    """The trainer's projection layer with its call under a profiler range."""
-
-    def __init__(self, projection):
-        self._projection = projection
-
-    def __call__(self, *args, **kwargs):
-        with torch.profiler.record_function("projection"):
-            return self._projection(*args, **kwargs)
-
-    def __getattr__(self, name):
-        return getattr(self._projection, name)
-
-
-def _ranged(fn, label):
-    def ranged(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
-
-    return ranged
+def _profiled(fn):
+    """Run `fn` under a recording of the program's spans and
+    `torch.profiler`; returns (the recording, the profiler's events, the
+    wall seconds, ending in a synchronize)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with recording() as rec, torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return rec, prof, wall
 
 
-def _device_kernels(events, annotations):
-    """The device kernels among profiler `events`, less the ranges that
-    `record_function` and the optimizers' step annotation mirror onto the
-    device timeline."""
+def _device_kernels(events):
+    """The device kernels among profiler `events`, less the mirrors that the
+    spans' `record_function` ranges and the optimizers' step annotation put
+    on the device timeline."""
+    cpu = torch.autograd.DeviceType.CPU
+    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)}
     return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name not in annotations
             and not e.name.startswith("Optimizer.")]
+
+
+def _span_intervals(events, name: str) -> List[Tuple[float, float]]:
+    """The host intervals of the span `name` on the profiler's clock (us)."""
+    return [(e.time_range.start, e.time_range.end) for e in events
+            if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
 
 
 def _port_kernels(kernels, steps: int, tag: str, per: str) -> Dict[str, float]:
@@ -91,38 +101,26 @@ def collect_window(trainer, state, steps: int, tag: str = "") -> Dict[str, float
     returns its headline numbers."""
     state, _, _ = trainer._collect(state)  # warm-up
     torch.cuda.synchronize()
-    ranges = {"env.step": (trainer.env, "step"), "policy": (trainer, "_policy_dist"), "critic": (trainer, "_value")}
-    for label, (obj, attr) in ranges.items():
-        setattr(obj, attr, _ranged(getattr(obj, attr), label))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            trainer._collect(state)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for obj, attr in ranges.values():
-            delattr(obj, attr)
+    rec, prof, wall = _profiled(lambda: trainer._collect(state))
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
-    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)}
-    kernels = _device_kernels(events, annotations | set(ranges))
+    kernels = _device_kernels(events)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     idle = 100 - 100 * busy_ms / 1e3 / wall
     print(f"[profile] {tag}collect, {trainer.num_envs} envs, {steps} control steps after a warm-up: "
           f"{1e3 * wall:.1f} ms wall, {len(kernels) / steps:.0f} device kernels per control step, device busy "
           f"{busy_ms:.1f} ms, idle {idle:.1f}% of the wall")
-    for label in ranges:
-        spans = [e for e in events if e.name == label and e.device_type == cpu]
-        dev_ms = sum(e.device_time_total for e in spans) / 1e3
-        host_ms = sum(e.time_range.elapsed_us() for e in spans) / 1e3
-        print(f"[profile] {tag}  {label}: {len(spans) // steps} calls per control step, {dev_ms:.2f} ms of device "
-              f"time ({100 * dev_ms / max(busy_ms, 1e-9):.1f}% of busy), {host_ms:.1f} ms of host time")
+    totals = rec.totals()
+    for label in COLLECT_SPANS:
+        dev_ms = sum(e.device_time_total for e in events if e.name == label and e.device_type == cpu) / 1e3
+        calls, host_s, _ = totals.get(label, (0, 0.0, 0.0))
+        print(f"[profile] {tag}  {label}: {calls // steps} calls per control step, {dev_ms:.2f} ms of device "
+              f"time ({100 * dev_ms / max(busy_ms, 1e-9):.1f}% of busy), {1e3 * host_s:.1f} ms of host time")
+    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)}
 
     def self_device_us(avg):
         return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0.0)
-    ops = sorted((a for a in prof.key_averages() if a.device_type == cpu and a.key not in annotations | set(ranges)),
+    ops = sorted((a for a in prof.key_averages() if a.device_type == cpu and a.key not in annotations),
                  key=lambda a: -self_device_us(a))
     for a in ops[:5]:
         print(f"[profile] {tag}  op {a.key}: {self_device_us(a) / 1e3:.2f} ms of device time, {a.count // steps} "
@@ -142,8 +140,6 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
     """Time and profile `minibatches` minibatch steps on the batch collected
     from `state` (which must hold at least that many minibatches). Prints the
     report and returns its headline numbers."""
-    from ..rl.projections import kl
-
     state, batch, _ = trainer._collect(state)
     data = trainer._update_data(state, batch)
     idx = trainer._permutation(state.generator, data["action"].shape[0])[:minibatches]
@@ -167,41 +163,9 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
     print(f"[profile] {tag}minibatch step: {step_ms:.3f} ms (synchronised, mean of {n}); peak device memory over the "
           f"window {peak_gib:.3f} GiB")
 
-    # the ranges exist only here, so the training loop pays no host time for them
-    patches = [(kl, "_solve_eta", _ranged(kl._solve_eta, "kl_bisection")),
-               (trainer, "_policy_dist", _ranged(trainer._policy_dist, "forward")),
-               (trainer, "_value", _ranged(trainer._value, "forward")),
-               (trainer, "_minibatch_loss", _ranged(trainer._minibatch_loss, "minibatch_loss")),
-               (trainer, "_optimizer_step", _ranged(trainer._optimizer_step, "optimizer_step")),
-               (trainer, "projection", _RangedProjection(trainer.projection)),
-               (torch.Tensor, "backward", _ranged(torch.Tensor.backward, "backward")),
-               (state.actor_opt, "step", _ranged(state.actor_opt.step, "adam")),
-               (state.critic_opt, "step", _ranged(state.critic_opt.step, "adam"))]
-    # an instance attribute that shadows a method is deleted afterwards; what
-    # was the object's own (a module's function, a class's method) is put back
-    saved = [(obj, name, name in vars(obj), vars(obj).get(name)) for obj, name, _ in patches]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    try:
-        for obj, name, fn in patches:
-            setattr(obj, name, fn)
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            window()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for obj, name, own, old in saved:
-            if own:
-                setattr(obj, name, old)
-            else:
-                delattr(obj, name)
+    rec, prof, wall = _profiled(window)
     events = prof.events()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    # device-side events other than the ranges that record_function and the
-    # optimizer's step annotation mirror onto the device timeline
-    labels = {"kl_bisection", "forward", "minibatch_loss", "optimizer_step", "projection", "backward", "adam"}
-    annotations = {e.name for e in events if e.device_type == cpu and getattr(e, "is_user_annotation", False)} | labels
-    kernels = _device_kernels(events, annotations)
+    kernels = _device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     per_mb = len(kernels) / n
     idle = 100 - 100 * busy_us / 1e6 / wall
@@ -210,36 +174,33 @@ def update_window(trainer, state, minibatches: int, tag: str = "") -> Dict[str, 
           f"(idle {idle:.1f}%)")
 
     # each device kernel belongs to the CPU op that launched it; an op belongs
-    # to the range whose host interval holds its start (the backward's ops run
-    # on autograd's thread while the main thread waits inside its range)
+    # to the span whose host interval holds its start (the backward's ops run
+    # on autograd's thread while the main thread waits inside its span); host
+    # time is the recording's
     ops = [(e.time_range.start, len(e.kernels), sum(k.duration for k in e.kernels))
-           for e in events if e.device_type == cpu and e.kernels]
-    spans = {label: [(e.time_range.start, e.time_range.end) for e in events if e.name == label and e.device_type == cpu]
-             for label in labels}
+           for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.kernels]
+    totals = rec.totals()
 
-    def inside(label):
-        count = dev = 0.0
-        for start, k, d in ops:
-            if any(a <= start < b for a, b in spans[label]):
-                count, dev = count + k, dev + d
-        return count, dev, sum(b - a for a, b in spans[label])
+    def inside(*names):
+        count = dev = host = 0.0
+        for name in names:
+            spans = _span_intervals(events, name)
+            for start, k, d in ops:
+                if any(a <= start < b for a, b in spans):
+                    count, dev = count + k, dev + d
+            host += 1e6 * totals.get(name, (0, 0.0, 0.0))[1]
+        return count, dev, host
 
-    raw = {label: inside(label) for label in labels}
-    parts = {
-        "forward": raw["forward"], "projection": raw["projection"],
-        "loss": tuple(m - f - p for m, f, p in zip(raw["minibatch_loss"], raw["forward"], raw["projection"])),
-        "backward": raw["backward"], "adam": raw["adam"],
-        "clip": tuple(o - a for o, a in zip(raw["optimizer_step"], raw["adam"])),
-    }
+    parts = {label: inside(*names) for label, names in PART_SPANS.items()}
     total = (sum(k for _, k, _ in ops), sum(d for _, _, d in ops), 1e6 * wall)
     parts["other"] = tuple(t - sum(v[i] for v in parts.values()) for i, t in enumerate(total))
     for label in PARTS:
         k, d, h = parts[label]
         print(f"[profile] {tag}  {label:10s} {k / n:7.0f} device kernels, {d / 1e3 / n:7.3f} ms of device time, "
               f"{h / 1e3 / n:7.3f} ms of host time per minibatch")
-    k, d, h = raw["kl_bisection"]
-    print(f"[profile] {tag}kl_bisection: {k / n:.0f} device kernels per minibatch, {d / 1e3:.2f} ms of device time = "
-          f"{100 * d / max(busy_us, 1):.1f}% of the busy time; {h / 1e3:.1f} ms of host time = "
+    k, d, h = inside("rl.kl_bisection")
+    print(f"[profile] {tag}rl.kl_bisection: {k / n:.0f} device kernels per minibatch, {d / 1e3:.2f} ms of device "
+          f"time = {100 * d / max(busy_us, 1):.1f}% of the busy time; {h / 1e3:.1f} ms of host time = "
           f"{100 * h / 1e6 / wall:.1f}% of the window's wall time")
     by_name = {}
     for e in kernels:

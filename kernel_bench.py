@@ -99,14 +99,12 @@ def segment_rows(label: str) -> list:
     """Time the tree's segment-sum kernel on `segment_calls()`."""
     import torch
 
-    from chip_smoke import bound_ms, flushed_graph_ms, graph_ms, index_add_operands, timed_ms
+    from chip_smoke import bound_ms, flushed_graph_ms, graph_ms, index_add_operands, launched_route, timed_ms
     from geometry_rl_torch.models import segment
 
     rows = []
     for family, kinds, values, csr in segment_calls():
-        before = dict(segment.LAUNCHES)
-        got = segment.segment_sum_cuda(values, csr)
-        routes = [k[len("segment_sum_"):] for k, v in segment.LAUNCHES.items() if k != "segment_sum" and v != before[k]]
+        got, route = launched_route(values, csr)
         torch.cuda.synchronize()
         equal = torch.equal(got, segment.segment_sum_ref(values, csr))
         device = graph_ms(lambda: segment.segment_sum_cuda(values, csr))
@@ -123,7 +121,7 @@ def segment_rows(label: str) -> list:
         depth = (csr.offsets[:, 1:] - csr.offsets[:, :-1]).max().item()
         rows.append({"kernel": "segment_sum", "family": family, "steps": kinds, "shape": [B, E, F],
                      "dtype": str(values.dtype), "segments": csr.num_segments, "per_env_csr": csr.perm.shape[0] > 1,
-                     "longest_segment": depth, "route": routes[0] if routes else None, "bit_equal": equal,
+                     "longest_segment": depth, "route": route, "bit_equal": equal,
                      "device_ms": device, "flushed_ms": flushed, "eager_ms": eager, "host_ms": host,
                      "plain_ms": plain, "index_add_ms": library,
                      "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / device,

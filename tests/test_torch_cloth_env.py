@@ -25,8 +25,8 @@ import test_torch_common  # noqa: F401  (pins torch to one thread per test worke
 from geometry_rl_tpu.envs import make_env as jax_make_env
 from geometry_rl_torch.convert import cloth_state_from_jax
 from geometry_rl_torch.envs import make_env
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.envs.cloth import N_PARTICLES, build_hole_variant, grid_constraints, sample_hole_placements
+from geometry_rl_torch.utils.trace import counting
 
 # the JAX package's own Pallas-vs-XLA gate (tests/test_envs_cloth.py); f32 on
 # both sides, differing only in operation order
@@ -213,14 +213,14 @@ def xpbd_trajectories():
         js = je.reset(jax.random.PRNGKey(8))
         ts_state = cloth_state_from_jax(jax.tree_util.tree_map(np.asarray, js), torch.Generator().manual_seed(0))
         rng = np.random.default_rng(2)
-        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
         steps = []
-        for _ in range(3):
-            action = rng.uniform(-1.2, 1.2, (B, je.cfg.action_dim)).astype(np.float32)
-            js, jts = je.step(js, jnp.asarray(action))
-            ts_state, tts = te.step(ts_state, torch.as_tensor(action))
-            steps.append((jax.tree_util.tree_map(np.asarray, (js, jts)), (ts_state, tts)))
-        assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}  # this mode is not the fused solve
+        with counting("kernels.cloth_solve", "kernels.cloth_solve_env") as launched:
+            for _ in range(3):
+                action = rng.uniform(-1.2, 1.2, (B, je.cfg.action_dim)).astype(np.float32)
+                js, jts = je.step(js, jnp.asarray(action))
+                ts_state, tts = te.step(ts_state, torch.as_tensor(action))
+                steps.append((jax.tree_util.tree_map(np.asarray, (js, jts)), (ts_state, tts)))
+        assert launched == {"kernels.cloth_solve": 0, "kernels.cloth_solve_env": 0}  # this mode is not the fused solve
         out[name] = steps
     return out
 

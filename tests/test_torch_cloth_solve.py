@@ -20,7 +20,6 @@ from geometry_rl_tpu.sim.pallas_cloth import cloth_position_solve, cloth_positio
 from geometry_rl_torch.envs import make_env
 from geometry_rl_torch.sim.cloth_solve import (
     _ATT_CHECKED,
-    LAUNCHES,
     _check_att_once,
     check_conflict_free,
     check_kernel_limits,
@@ -31,6 +30,7 @@ from geometry_rl_torch.sim.cloth_solve import (
     pack_groups,
     solve_cost,
 )
+from geometry_rl_torch.utils.trace import counting
 
 # the JAX package's own Pallas-vs-XLA gate (tests/test_envs_cloth.py); both
 # sides are f32 and differ only in summation order (~1e-6 seen)
@@ -112,10 +112,10 @@ def test_operands_exercise_contact_and_self_collision(envs):
 
 def test_cpu_tensors_take_the_plain_version(envs):
     _, te, (x, prev, hanger) = envs
-    LAUNCHES["cloth_solve"] = 0
     args = port_operands(te, x, prev, hanger)
-    assert torch.equal(port_solve(*args), cloth_position_solve_ref(*args))
-    assert LAUNCHES["cloth_solve"] == 0
+    with counting("kernels.cloth_solve") as launched:
+        assert torch.equal(port_solve(*args), cloth_position_solve_ref(*args))
+    assert launched == {"kernels.cloth_solve": 0}
     with pytest.raises(ValueError, match="CUDA"):
         cloth_position_solve_cuda(*args)
 
@@ -174,12 +174,12 @@ def test_wrappers_check_limits_first(solve):
     te = make_env("cloth_hanging", num_envs=B, warmup_steps=0, device="cpu")
     je = jax_make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver="tiled")
     spec, *rest = port_operands(te, *solve_operands(je, seed=1))
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    with pytest.raises(ValueError, match="16 distance groups"):
-        solve(spec._replace(group_sizes=(8,) * 17), *rest)
-    with pytest.raises(ValueError, match="CUDA"):
-        solve(spec, *rest)
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    with counting("kernels.cloth_solve", "kernels.cloth_solve_env") as launched:
+        with pytest.raises(ValueError, match="16 distance groups"):
+            solve(spec._replace(group_sizes=(8,) * 17), *rest)
+        with pytest.raises(ValueError, match="CUDA"):
+            solve(spec, *rest)
+    assert launched == {"kernels.cloth_solve": 0, "kernels.cloth_solve_env": 0}
 
 
 def test_plain_version_counts_contacts_and_self_hits(envs):

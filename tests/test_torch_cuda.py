@@ -12,19 +12,24 @@ from geometry_rl_torch.config import _merge, load_config, trainer_from_config
 from geometry_rl_torch.envs import make_env
 from geometry_rl_torch.graphs.types import csr_from_index
 from geometry_rl_torch.models.common import gather_nodes, scatter_sum
-from geometry_rl_torch.models.segment import LAUNCHES as SEGMENT_LAUNCHES
 from geometry_rl_torch.models.segment import ON_THE_SPOT, ROUTES, segment_sum_cuda, segment_sum_ref
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
 from geometry_rl_torch.sim.cloth_solve import (
-    LAUNCHES,
     cloth_position_solve_cuda,
     cloth_position_solve_env_cuda,
     cloth_position_solve_ref,
 )
+from geometry_rl_torch.utils.trace import counting
 
 ATOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate for the cloth solve
 # K2's port and K1's: one design (csrc/cloth_solve_common.cuh), two operation orders
 KERNELS = {"cloth_solve": cloth_position_solve_cuda, "cloth_solve_env": cloth_position_solve_env_cuda}
+# their launch counters
+CLOTH = ("kernels.cloth_solve", "kernels.cloth_solve_env")
+
+
+def cloth_launches(solve: int, solve_env: int) -> dict:
+    return {"kernels.cloth_solve": solve, "kernels.cloth_solve_env": solve_env}
 
 
 @pytest.fixture
@@ -65,10 +70,10 @@ def folded_operands(env, seed):
 def test_cuda_kernel_matches_plain_version(cuda_device, num_envs, self_collision, kernel):
     env = make_env("cloth_hanging", num_envs=num_envs, warmup_steps=0, self_collision=self_collision, device=cuda_device)
     args = folded_operands(env, seed=3)
-    before = dict(LAUNCHES)
-    out = KERNELS[kernel](*args)
+    with counting(*CLOTH) as launched:
+        out = KERNELS[kernel](*args)
     torch.cuda.synchronize()
-    assert LAUNCHES == {**before, kernel: before[kernel] + 1}
+    assert launched == {**cloth_launches(0, 0), f"kernels.{kernel}": 1}
     assert (out - cloth_position_solve_ref(*args)).abs().max().item() <= ATOL
 
 
@@ -119,11 +124,11 @@ def test_per_env_solver_mode_launches_only_its_kernel(cuda_device):
     control step, one launch each."""
     env = make_env("cloth_hanging", num_envs=8, warmup_steps=0, use_pallas_solver=True, device=cuda_device)
     state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    for _ in range(3):
-        state, ts = env.step(state, torch.zeros((8, env.cfg.action_dim), device=cuda_device))
+    with counting(*CLOTH) as launched:
+        for _ in range(3):
+            state, ts = env.step(state, torch.zeros((8, env.cfg.action_dim), device=cuda_device))
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 6}
+    assert launched == cloth_launches(0, 6)
     assert torch.isfinite(state.scene.particles.pos).all() and torch.isfinite(ts.reward).all()
 
 
@@ -166,12 +171,12 @@ def test_train_iteration_on_the_card_is_finite(cuda_device):
         "collector": {"frames_per_batch": 64}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 16}},
     })
     trainer = trainer_from_config(cfg, device=cuda_device)
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
-    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
-    state, metrics = trainer.train_iteration(state)
+    with counting(*CLOTH) as launched:
+        state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+        before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+        state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 2 * (1 + 8)}
+    assert launched == cloth_launches(0, 2 * (1 + 8))
     assert state.num_updates == 5 * 4
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
@@ -193,12 +198,12 @@ def test_rigid_env_on_the_card_matches_cpu(cuda_device, task):
                      episode_step=sg.episode_step.cpu(), prev_action=sg.prev_action.cpu(),
                      generator=torch.Generator().manual_seed(0))
     actions = torch.rand((3, 8, gpu.cfg.action_dim), generator=torch.Generator().manual_seed(1)) * 2.4 - 1.2
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    for a in actions:
-        sg, ts_g = gpu.step(sg, a.to(cuda_device))
-        sc, ts_c = cpu.step(sc, a)
+    with counting(*CLOTH) as launched:
+        for a in actions:
+            sg, ts_g = gpu.step(sg, a.to(cuda_device))
+            sc, ts_c = cpu.step(sc, a)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert launched == cloth_launches(0, 0)
     for got, ref in ((sg.scene.bodies.pos, sc.scene.bodies.pos), (sg.scene.bodies.quat, sc.scene.bodies.quat),
                      (ts_g.reward, ts_c.reward)):
         assert (got.cpu() - ref).abs().max().item() <= 1e-5
@@ -232,12 +237,12 @@ def test_rigid_train_iteration_on_the_card_is_finite(cuda_device):
         "collector": {"frames_per_batch": 128}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 32}},
     })
     trainer = trainer_from_config(cfg, device=cuda_device)
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
-    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
-    state, metrics = trainer.train_iteration(state)
+    with counting(*CLOTH) as launched:
+        state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+        before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+        state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert launched == cloth_launches(0, 0)
     assert state.num_updates == 5 * 4
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
@@ -286,12 +291,12 @@ def test_rope_env_on_the_card_matches_cpu(cuda_device, task):
     sg = gpu.reset(torch.Generator(device=cuda_device).manual_seed(0))
     sc = tree_to(sg, "cpu")
     actions = torch.rand((3, 8, 6), generator=torch.Generator().manual_seed(1)) * 2.4 - 1.2
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    for a in actions:
-        sg, ts_g = gpu.step(sg, a.to(cuda_device))
-        sc, ts_c = cpu.step(sc, a)
+    with counting(*CLOTH) as launched:
+        for a in actions:
+            sg, ts_g = gpu.step(sg, a.to(cuda_device))
+            sc, ts_c = cpu.step(sc, a)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert launched == cloth_launches(0, 0)
     for got, ref in ((sg.scene.particles.pos, sc.scene.particles.pos), (sg.scene.bodies.pos, sc.scene.bodies.pos),
                      (ts_g.reward, ts_c.reward)):
         assert (got.cpu() - ref).abs().max().item() <= 1e-5
@@ -350,12 +355,12 @@ def test_rope_train_iteration_on_the_card_is_finite(cuda_device):
         "collector": {"frames_per_batch": 128}, "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 32}},
     })
     trainer = trainer_from_config(cfg, device=cuda_device)
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
-    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
-    state, metrics = trainer.train_iteration(state)
+    with counting(*CLOTH) as launched:
+        state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+        before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+        state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert launched == cloth_launches(0, 0)
     assert state.num_updates == 5 * 4
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
@@ -377,11 +382,12 @@ def test_cloth_xpbd_mode_matches_tiled_mode(cuda_device, self_collision):
     for t in range(3):
         action = torch.sin(torch.arange(16 * A, dtype=torch.float32, device=cuda_device).reshape(16, A) * 0.7 + t * 0.3)
         pre = env_x._apply_action(state.scene, action)
-        LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-        sx = env_x._physics(pre, state.hanger_pos)
-        assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
-        st = env_t._physics(pre, state.hanger_pos)
-        assert LAUNCHES == {"cloth_solve": 2, "cloth_solve_env": 0}
+        with counting(*CLOTH) as launched:
+            sx = env_x._physics(pre, state.hanger_pos)
+        assert launched == cloth_launches(0, 0)
+        with counting(*CLOTH) as launched:
+            st = env_t._physics(pre, state.hanger_pos)
+        assert launched == cloth_launches(2, 0)
         assert (st.particles.pos - sx.particles.pos).abs().max().item() <= ATOL
         assert (st.bodies.pos - sx.bodies.pos).abs().max().item() <= ATOL
         state = state._replace(scene=sx)
@@ -504,13 +510,13 @@ def test_cloth_collect_does_not_synchronise(cuda_device):
     state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
     state, _, _ = trainer._collect(state)
     torch.cuda.synchronize()
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, batch, _ = trainer._collect(state)
+        with counting(*CLOTH) as launched:
+            state, batch, _ = trainer._collect(state)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert LAUNCHES == {"cloth_solve": 2 * 8, "cloth_solve_env": 0}
+    assert launched == cloth_launches(2 * 8, 0)
     assert batch.done.any() and torch.isfinite(batch.reward).all()
 
 
@@ -572,15 +578,15 @@ def test_bc_epoch_and_render_frames_do_not_synchronise(cuda_device):
     bc_epoch(trainer, opt, tobs, actions, ids, perm)  # warm-up: the optimiser's state is made
     frame_tensors(trainer, state, 2)
     torch.cuda.synchronize()
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        loss = bc_epoch(trainer, opt, tobs, actions, ids, perm)
-        stacked, done = frame_tensors(trainer, state, 5)
+        with counting(*CLOTH) as launched:
+            loss = bc_epoch(trainer, opt, tobs, actions, ids, perm)
+            stacked, done = frame_tensors(trainer, state, 5)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(loss) and done.shape == (5,) and stacked["particles"].shape == (5, 225, 3)
-    assert LAUNCHES == {"cloth_solve": 2 * 5, "cloth_solve_env": 0}
+    assert launched == cloth_launches(2 * 5, 0)
     assert len(collect_frames(trainer, state, 5)) == 2  # env 0 ends its episode at the third step
 
 
@@ -609,9 +615,9 @@ def test_segment_sum_kernel_matches_plain_version(cuda_device, config, dtype):
     for ek, es in graph.edges.items():
         for csr in (es.dst_csr, es.src_csr):
             values = torch.randn((B, es.num_edges, 16 * 64), generator=g, device=cuda_device).to(dtype)
-            before = SEGMENT_LAUNCHES["segment_sum"]
-            got = segment_sum_cuda(values, csr)
-            assert SEGMENT_LAUNCHES["segment_sum"] == before + 1
+            with counting("kernels.segment_sum") as launched:
+                got = segment_sum_cuda(values, csr)
+            assert launched == {"kernels.segment_sum": 1}
             torch.cuda.synchronize()
             assert torch.equal(got, segment_sum_ref(values, csr)), (ek, dtype)
 
@@ -627,14 +633,14 @@ def test_message_sums_launch_the_kernel(cuda_device):
     x = torch.randn(2, 5, 4, 8)
     outs = {}
     for dev in ("cpu", "cuda"):
-        SEGMENT_LAUNCHES["segment_sum"] = 0
-        m, v = msg.to(dev, copy=True).requires_grad_(), x.to(dev, copy=True).requires_grad_()
-        c = type(csr)(*(t.to(dev) for t in csr))
-        out = scatter_sum(m, idx.to(dev), 5, c)
-        gathered = gather_nodes(v, idx.to(dev), c)
-        (out.sum() + (gathered * gathered).sum()).backward()
-        outs[dev] = (out.detach().cpu(), v.grad.cpu(), m.grad.cpu())
-        assert SEGMENT_LAUNCHES["segment_sum"] == (2 if dev == "cuda" else 0)
+        with counting("kernels.segment_sum") as launched:
+            m, v = msg.to(dev, copy=True).requires_grad_(), x.to(dev, copy=True).requires_grad_()
+            c = type(csr)(*(t.to(dev) for t in csr))
+            out = scatter_sum(m, idx.to(dev), 5, c)
+            gathered = gather_nodes(v, idx.to(dev), c)
+            (out.sum() + (gathered * gathered).sum()).backward()
+            outs[dev] = (out.detach().cpu(), v.grad.cpu(), m.grad.cpu())
+        assert launched == {"kernels.segment_sum": 2 if dev == "cuda" else 0}
     for a, b in zip(outs["cpu"], outs["cuda"]):
         assert torch.equal(a, b)
 
@@ -674,10 +680,10 @@ def offset_copy(values, offset):
 
 def launched_route(values, csr):
     """The route the wrapper took for one call, from the per-route counts."""
-    before = dict(SEGMENT_LAUNCHES)
-    out = segment_sum_cuda(values, csr)
-    moved = [r for r in ROUTES if SEGMENT_LAUNCHES[f"segment_sum_{r}"] != before[f"segment_sum_{r}"]]
-    assert SEGMENT_LAUNCHES["segment_sum"] == before["segment_sum"] + 1 and len(moved) == 1
+    with counting("kernels.segment_sum", *(f"kernels.segment_sum.{r}" for r in ROUTES)) as launched:
+        out = segment_sum_cuda(values, csr)
+    moved = [r for r in ROUTES if launched[f"kernels.segment_sum.{r}"]]
+    assert launched["kernels.segment_sum"] == 1 and len(moved) == 1
     return out, moved[0]
 
 
@@ -769,10 +775,10 @@ def test_segment_sum_runs_a_plan_it_is_given(cuda_device, groups):
     values = torch.randn((100, 90, 1024), generator=g, device=cuda_device).to(torch.bfloat16)
     plan = launch_plan(100, 90, 10, 1024, torch.bfloat16, True)
     plan = plan._replace(groups=groups, grid=plan.grid // plan.groups * groups)
-    before = dict(SEGMENT_LAUNCHES)
-    got = segment_sum_cuda(values, csr, plan)
+    with counting("kernels.segment_sum.vec16") as launched:
+        got = segment_sum_cuda(values, csr, plan)
     torch.cuda.synchronize()
-    assert SEGMENT_LAUNCHES["segment_sum_vec16"] == before["segment_sum_vec16"] + 1
+    assert launched == {"kernels.segment_sum.vec16": 1}
     assert torch.equal(got, segment_sum_ref(values, csr))
 
 

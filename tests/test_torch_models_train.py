@@ -28,9 +28,9 @@ import torch
 from geometry_rl_torch import convert
 from geometry_rl_torch.config import load_config, trainer_from_config
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_step
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train import TrainConfig
 from geometry_rl_torch.train.builders import build_agent
+from geometry_rl_torch.utils.trace import counting
 from test_torch_common import close, frozen, np_tree, port_agent, reference_agent
 
 STEPS, RTOL = 3, 1e-4
@@ -170,10 +170,10 @@ def test_train_iteration_runs_on_cpu(name):
         "collector": {"frames_per_batch": 8}, "algorithm": {"latent_dim": 8, "num_ori": 4, "objective": {"mini_batch_size": 4}},
     })
     trainer = trainer_from_config(cfg, device="cpu")
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    state = trainer.init(torch.Generator().manual_seed(0))
-    state, metrics = trainer.train_iteration(state)
+    with counting("kernels.cloth_solve", "kernels.cloth_solve_env") as launched:
+        state = trainer.init(torch.Generator().manual_seed(0))
+        state, metrics = trainer.train_iteration(state)
     assert state.num_updates == 5 * 2
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert metrics["train/episodes"].item() == 2  # one episode end per env in 4 steps of 3
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}  # CPU tensors take the plain version
+    assert launched == {"kernels.cloth_solve": 0, "kernels.cloth_solve_env": 0}  # CPU tensors take the plain version

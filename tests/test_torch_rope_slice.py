@@ -33,9 +33,9 @@ from geometry_rl_tpu.train.builders import build_agent as jax_build_agent
 from geometry_rl_torch.config import load_config, trainer_from_config
 from geometry_rl_torch.convert import batch_from_jax, obs_norm_from_jax, params_from_flax, rope_state_from_jax
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_step
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train import TrainConfig, cli, play
 from geometry_rl_torch.train.builders import build_agent
+from geometry_rl_torch.utils.trace import counting
 
 SMALL = dict(num_envs=4, latent_dim=16, num_ori=4)
 ENV_KW = dict(num_links=12, rope_length=1.5, warmup_steps=2)
@@ -183,15 +183,15 @@ def test_train_iteration_runs_on_cpu(name):
     })
     trainer = trainer_from_config(cfg, device="cpu")
     assert trainer.policy.backbone.dtype == torch.bfloat16  # the config's algorithm.dtype
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    state = trainer.init(torch.Generator().manual_seed(0))
-    before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
-    state, metrics = trainer.train_iteration(state)
+    with counting("kernels.cloth_solve", "kernels.cloth_solve_env") as launched:
+        state = trainer.init(torch.Generator().manual_seed(0))
+        before = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+        state, metrics = trainer.train_iteration(state)
     assert state.num_updates == 5 * 2
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     assert metrics["train/episodes"].item() == 4  # one episode end per env in 4 steps of 3
     assert any((trainer.policy.state_dict()[k] - v).abs().max() > 0 for k, v in before.items())
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}
+    assert launched == {"kernels.cloth_solve": 0, "kernels.cloth_solve_env": 0}
 
 
 def test_cli_run_and_play(tmp_path):

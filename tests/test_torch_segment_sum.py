@@ -48,7 +48,6 @@ from geometry_rl_torch.models import common as torch_common
 from geometry_rl_torch.models.segment import (
     CTAS_PER_SM,
     H100_SMS,
-    LAUNCHES,
     MAX_TILE_BYTES,
     ON_THE_SPOT,
     RING_BYTES,
@@ -64,6 +63,7 @@ from geometry_rl_torch.sim import xpbd
 from geometry_rl_torch.sim.types import FixedJointSpec
 from geometry_rl_torch.train import TrainConfig
 from geometry_rl_torch.train.builders import build_agent
+from geometry_rl_torch.utils.trace import counting
 from test_torch_particle_sim import body_spec_arrays, specs, tilted_quats
 
 F32_TOL = 1e-6
@@ -125,9 +125,9 @@ def test_plain_segment_sum_adds_in_csr_order(name, dtype):
     _, dst, _, n, _ = topology(name, B, rng)
     vals = torch.as_tensor(rng.normal(size=(B, dst.shape[1], 5)).astype(np.float32)).to(dtype)
     csr = csr_from_index(torch.as_tensor(dst), n)
-    LAUNCHES["segment_sum"] = 0
-    got = segment_sum(vals, csr)
-    assert LAUNCHES["segment_sum"] == 0  # a CPU tensor takes the plain version
+    with counting("kernels.segment_sum") as launched:
+        got = segment_sum(vals, csr)
+    assert launched == {"kernels.segment_sum": 0}  # a CPU tensor takes the plain version
     v, perm, off = vals.float().numpy(), csr.perm.numpy(), csr.offsets.numpy()
     want = np.zeros((B, n, 5), np.float32)
     for b in range(B):

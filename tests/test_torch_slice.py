@@ -26,9 +26,9 @@ from geometry_rl_tpu.train.builders import build_agent as jax_build_agent
 from geometry_rl_torch.config import load_config, trainer_from_config
 from geometry_rl_torch.convert import cloth_state_from_jax, obs_norm_from_jax, params_from_flax
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_step
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train.builders import build_agent
 from geometry_rl_torch.train.ppo import fold_in, split_generator
+from geometry_rl_torch.utils.trace import counting
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_envs=2, latent_dim=16, num_ori=4)
@@ -122,16 +122,16 @@ def test_rollout_and_eval_run_on_cpu():
         "collector": {"frames_per_batch": 8}, "algorithm": {"latent_dim": 8, "num_ori": 4},
     })
     trainer = trainer_from_config(cfg, device="cpu")
-    LAUNCHES["cloth_solve"] = 0
-    state = trainer.init(torch.Generator().manual_seed(0))
-    gen_state = state.generator.get_state()
-    state, batch, stats = trainer._collect(state)
-    assert batch.action.shape == (4, 2, 12) and batch.tobs["scalars"].shape[:2] == (4, 2)
-    assert stats["train/episodes"].item() == 2  # one episode end per env in 4 steps of 3
-    success = trainer.eval_success(state, 4)
-    assert all(torch.isfinite(v) for v in success.values())
-    assert torch.isfinite(trainer.eval_rollout(state, 4))
-    assert LAUNCHES["cloth_solve"] == 0  # CPU tensors never reach the kernel
+    with counting("kernels.cloth_solve") as launched:
+        state = trainer.init(torch.Generator().manual_seed(0))
+        gen_state = state.generator.get_state()
+        state, batch, stats = trainer._collect(state)
+        assert batch.action.shape == (4, 2, 12) and batch.tobs["scalars"].shape[:2] == (4, 2)
+        assert stats["train/episodes"].item() == 2  # one episode end per env in 4 steps of 3
+        success = trainer.eval_success(state, 4)
+        assert all(torch.isfinite(v) for v in success.values())
+        assert torch.isfinite(trainer.eval_rollout(state, 4))
+    assert launched == {"kernels.cloth_solve": 0}  # CPU tensors never reach the kernel
     assert trainer.policy.backbone.node_encoder.weight.dtype == torch.float32
     assert trainer.policy.backbone.dtype == torch.bfloat16  # the config's algorithm.dtype
     # eval derives its generator without advancing the state's

@@ -38,10 +38,10 @@ from geometry_rl_tpu.rl.obs_pipeline import obs_norm_step as jax_obs_norm_step
 from geometry_rl_tpu.train import TrainConfig as JaxTrainConfig
 from geometry_rl_tpu.train.builders import build_agent as jax_build_agent
 from geometry_rl_torch.convert import batch_from_jax, obs_norm_from_jax, params_from_flax
-from geometry_rl_torch.sim.cloth_solve import LAUNCHES
 from geometry_rl_torch.train import TrainConfig
 from geometry_rl_torch.train.builders import build_agent
 from geometry_rl_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from geometry_rl_torch.utils.trace import counting
 
 SMALL = dict(num_envs=2, latent_dim=8, num_ori=4, trust_region_coeff=4.0, cov_bound=1e-3)
 CFG = dict(steps_per_batch=4, mini_batch_size=4, ppo_epochs=2, total_iterations=10)
@@ -307,9 +307,9 @@ def train(log_dir, *args):
 def test_train_cli_logs_checkpoints_and_resumes_exactly(ref, tmp_path):
     jtr, js, jbatch, _ = ref
     _, jm = jax.jit(jtr._update)(js, jbatch)
-    LAUNCHES.update(cloth_solve=0, cloth_solve_env=0)
-    run, rows = train(tmp_path / "a")
-    assert LAUNCHES == {"cloth_solve": 0, "cloth_solve_env": 0}  # CPU tensors take the plain version
+    with counting("kernels.cloth_solve", "kernels.cloth_solve_env") as launched:
+        run, rows = train(tmp_path / "a")
+    assert launched == {"kernels.cloth_solve": 0, "kernels.cloth_solve_env": 0}  # CPU tensors take the plain version
     assert len(rows) == 3 and [r["step"] for r in rows] == [0, 1, 2]
     reference_keys = set(jm) | {"train/reward", "train/episodes", "train/iteration_time", "train/frames"}
     for r in rows:
