@@ -8,10 +8,12 @@ target (static marker), plate (insertion only, static)].
 
 `step` draws fresh poses for every env on every step and selects those of
 the envs that finished with `torch.where`; it reads nothing back to the host,
-so a rollout on the card stays asynchronous. `restitution` and
-`dynamic_friction_scale` reach every contact (the dynamic coefficient is the
-scale times the contact's static one) and turn on the XPBD velocity pass;
-both default to 0, which runs none.
+so a rollout on the card stays asynchronous. On the card a control step's
+physics (`step_physics`, thousands of small ops) is captured once into a
+CUDA graph and replayed (`sim/graph.py`); on the CPU it runs eagerly.
+`restitution` and `dynamic_friction_scale` reach every contact (the dynamic
+coefficient is the scale times the contact's static one) and turn on the
+XPBD velocity pass; both default to 0, which runs none.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..parallel.mesh import Rows, draw_rows
 from ..sim.shapes import PUSHING_SHAPE_NAMES, SHAPE_NAMES, ShapeSet, build_shape_set, ground_sdf, hole_plate_sdf, polygon_sdf_2d
+from ..sim.graph import PhysicsGraph
 from ..sim.types import FixedJointSpec, RigidBodySpec, RigidBodyState, SceneState, box_inertia
 from ..sim.xpbd import BodyPairContact, ContactSet, joint_sum_order, with_bodies, step_physics
 from ..utils.math import (
@@ -207,6 +210,8 @@ class RigidEnv:
         self.stick_points = t([[x, y, z] for x in (-sx / 2, 0, sx / 2) for y in (-sy / 2, sy / 2) for z in (-sz / 2, 0, sz / 2)])
         self.fd_eps = 1e-4
         self.fd_x, self.fd_y = t([self.fd_eps, 0.0]), t([0.0, self.fd_eps])
+        # on the card the physics is captured at its first call and replayed after
+        self._graph = PhysicsGraph(self._step_bodies) if device.type == "cuda" else None
 
     # ------------------------------------------------------------------ spec
 
@@ -418,15 +423,24 @@ class RigidEnv:
         return contacts, pair_contacts
 
     def _physics(self, scene: SceneState, zero_vel: bool = False) -> SceneState:
-        cfg = self.cfg
+        """One control step's physics: eager on the CPU, a replay of one CUDA
+        graph (`sim/graph.py`) on the card, with the same bits."""
+        bodies = scene.bodies
         if zero_vel:
-            zeros = torch.zeros_like(scene.bodies.lin_vel)
-            scene = scene._replace(bodies=scene.bodies._replace(lin_vel=zeros, ang_vel=zeros))
+            zeros = torch.zeros_like(bodies.lin_vel)
+            bodies = bodies._replace(lin_vel=zeros, ang_vel=zeros)
+        step = self._step_bodies if self._graph is None else self._graph
+        return SceneState(bodies=step(bodies))
+
+    def _step_bodies(self, bodies: RigidBodyState) -> RigidBodyState:
+        """The eager XPBD chain: `decimation` substeps under this step's contacts."""
+        cfg = self.cfg
+        scene = SceneState(bodies=bodies)
         contacts, pair_contacts = self._contacts(scene)
         return step_physics(
             scene, self.body_spec, cfg.dt, cfg.decimation, joints=self.joints, contacts=contacts,
             pair_contacts=pair_contacts, iterations=cfg.iterations,
-        )
+        ).bodies
 
     def _apply_action(self, scene: SceneState, action: torch.Tensor) -> SceneState:
         """Clamp, then write each gripper's root velocity: the linear part as

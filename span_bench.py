@@ -16,6 +16,11 @@ For a cell (on the card; the harness has no switch for the recorder):
     `update_ms_per_minibatch`, `collect_ms_per_step` by the trainer's
     timings) and, when on, each span's calls and host and self ms per control
     or minibatch step in the same window, the twins of those readings;
+  - on the card, the rigid env's physics is one CUDA graph replayed a control
+    step (`geometry_rl_torch/sim/graph.py`): `envs.physics` wraps the replay,
+    the counters `sim.physics_graph.captures` / `.replays` are printed for
+    set-up and per step of each window, and the `sim.*` spans are recorded
+    only in set-up's capture pass (printed apart), none in a window;
   - the benchmark's traced slice (`benchmark/trace.py`), recording off, then
     again with recording on: `reduce_events` of both; the kernels inside each
     span's and each range's device mirror, per step; and the slice's idle
@@ -47,6 +52,7 @@ LAYERS = ("setup.", "train.", "rl.", "envs.", "sim.", "kernels.", "graphs.", "mo
 ROLLOUT_SPANS = ("envs.step", "envs.physics", "envs.action", "envs.reward", "envs.reset_draw", "envs.observe",
                  "sim.substep", "sim.joints", "sim.contacts", "sim.integrate", "sim.velocity", "train.policy",
                  "graphs.build", "models.forward", "kernels.segment_sum")
+PHYSICS_GRAPH = ("sim.physics_graph.captures", "sim.physics_graph.replays")
 TURNS = ("off", "on", "on", "off", "off", "on")  # recording off or on, a window each
 ROLLOUT_SECONDS, TRAIN_ITERATIONS = 12.0, 2  # a window
 TRAIN_SPANS = ("train.minibatch", "train.backward", "train.optimizer", "rl.projection", "rl.kl_bisection",
@@ -131,7 +137,7 @@ def measure_cell(args) -> dict:
     cfg = copy.deepcopy(cell.config)
     if args.tiny:
         tiny(cfg)
-    with recording() as srec, counting("setup.nvcc_builds") as built:
+    with recording() as srec, counting("setup.nvcc_builds", *PHYSICS_GRAPH) as built:
         t0 = time.perf_counter()
         trainer = build_system(cfg, dev, "port")
         t1 = time.perf_counter()
@@ -144,8 +150,13 @@ def measure_cell(args) -> dict:
     setup = {"setup_s": time.perf_counter() - T_START, "imports_s": t_imports, "cuda_init_s": cuda_init,
              "build_wall_s": t1 - t0, "init_wall_s": t2 - t1, "warmup_s": t3 - t2,
              "spans": {k: v for k, v in srec.totals().items() if k.startswith("setup.")},
-             "nvcc_builds": built["setup.nvcc_builds"]}
+             "nvcc_builds": built["setup.nvcc_builds"],
+             "physics_graph": {k: built[k] for k in PHYSICS_GRAPH},
+             "capture_pass_spans": {k: v for k, v in srec.totals().items() if k.startswith("sim.")}}
     print(f"[spans] {cell.name} on {card}: setup {json.dumps(setup)}", flush=True)
+    if built["sim.physics_graph.captures"]:
+        print(f"[spans] {cell.name}: the physics replays a CUDA graph; its sim.* spans (capture_pass_spans) come from "
+              "set-up's capture pass, and a window records none: envs.physics wraps the replay", flush=True)
 
     rollout = cell.loop == "rollout"
     n_envs = trainer.env.cfg.num_envs
@@ -161,7 +172,7 @@ def measure_cell(args) -> dict:
         timer = HostTimer()
         n = 0
         with Patches([(tr.env, "step", timer.wrap(tr.env.step, "env.step")),
-                      (tr, "_policy_dist", timer.wrap(tr._policy_dist, "policy"))]):
+                      (tr, "_policy_dist", timer.wrap(tr._policy_dist, "policy"))]), counting(*PHYSICS_GRAPH) as graph:
             sync(tr.device)
             ns0, t0 = time.perf_counter_ns(), time.perf_counter()
             while time.perf_counter() - t0 < ROLLOUT_SECONDS:
@@ -171,7 +182,8 @@ def measure_cell(args) -> dict:
             wall, ns1 = time.perf_counter() - t0, time.perf_counter_ns()
         return {"steps": n, "wall_s": wall, "rate": n * n_envs / wall,
                 "env_step_host_ms": 1e3 * timer.seconds["env.step"] / n,
-                "policy_host_ms": 1e3 * timer.seconds["policy"] / n}, (ns0, ns1), n
+                "policy_host_ms": 1e3 * timer.seconds["policy"] / n,
+                "physics_graph_per_step": {k: v / n for k, v in graph.items()}}, (ns0, ns1), n
 
     def train_window():
         tr = loop.trainer

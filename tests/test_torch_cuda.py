@@ -19,6 +19,7 @@ from geometry_rl_torch.sim.cloth_solve import (
     cloth_position_solve_env_cuda,
     cloth_position_solve_ref,
 )
+from geometry_rl_torch.sim.xpbd import step_physics
 from geometry_rl_torch.utils.trace import counting
 
 ATOL = 2e-4  # the JAX package's own Pallas-vs-XLA gate for the cloth solve
@@ -220,12 +221,114 @@ def test_rigid_step_does_not_synchronise(cuda_device):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(2):
-            state, ts = env.step(state, action)
+        with counting(*PHYSICS_GRAPH) as moved:
+            for _ in range(2):
+                state, ts = env.step(state, action)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    assert moved == physics_graph(0, 2)  # the physics replayed its graph
     assert torch.isfinite(state.scene.bodies.pos).all() and torch.isfinite(ts.reward).all()
+
+
+RIGID_TASKS = ["rigid_insertion", "rigid_pushing", "rigid_sliding", "rigid_insertion_two_agents"]
+PHYSICS_GRAPH = ("sim.physics_graph.captures", "sim.physics_graph.replays")
+
+
+def physics_graph(captures: int, replays: int) -> dict:
+    return {"sim.physics_graph.captures": captures, "sim.physics_graph.replays": replays}
+
+
+def eager_physics(env, scene):
+    """The env's physics as the eager XPBD chain, with the env's own arguments."""
+    cfg = env.cfg
+    contacts, pair_contacts = env._contacts(scene)
+    return step_physics(scene, env.body_spec, cfg.dt, cfg.decimation, joints=env.joints, contacts=contacts,
+                        pair_contacts=pair_contacts, iterations=cfg.iterations)
+
+
+def bodies_equal(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", RIGID_TASKS)
+def test_rigid_physics_graph_gives_the_eager_bits(cuda_device, task):
+    """The reset's three warm-up calls (the first captures, the others
+    replay) and 5 control steps, in episodes of 3 so that every env restarts
+    once: each physics call bit-equal (`torch.equal`) to the eager chain on
+    the same input, and so is the state each step returns for the envs that
+    go on."""
+    B = 64
+    env = make_env(task, num_envs=B, warmup_steps=3, episode_length=3, device=cuda_device)
+    scene = env._assemble_scene(*env._sample_poses(torch.Generator(device=cuda_device).manual_seed(0)))
+    for _ in range(3):
+        zero = torch.zeros_like(scene.bodies.lin_vel)
+        scene = eager_physics(env, scene._replace(bodies=scene.bodies._replace(lin_vel=zero, ang_vel=zero)))
+    with counting(*PHYSICS_GRAPH) as moved:
+        state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+    assert moved == physics_graph(1, 2)
+    assert bodies_equal(state.scene.bodies, scene.bodies)
+    actions = torch.rand((5, B, env.cfg.action_dim), generator=torch.Generator().manual_seed(1)) * 2.4 - 1.2
+    restarted = 0
+    for a in actions.to(cuda_device):
+        pre = env._apply_action(state.scene, a)
+        want = eager_physics(env, pre).bodies
+        assert bodies_equal(env._physics(pre).bodies, want)
+        state, ts = env.step(state, a)
+        on = ~ts.done
+        assert bodies_equal([t[on] for t in state.scene.bodies], [t[on] for t in want])
+        restarted += int(ts.done.sum())
+    assert restarted == B
+
+
+@pytest.mark.cuda
+def test_rigid_physics_graph_reads_the_plate_pose_of_each_call(cuda_device):
+    """The plate SDF reads the plate's pose out of the graph's static input:
+    the peg and its welded gripper, moved so that the peg sits in the
+    plate's slab beside the hole, are pushed out; with the plate moved 1 m
+    away the peg falls freely. Both replays bit-equal to the eager chain,
+    and apart in every env."""
+    env = make_env("rigid_insertion", num_envs=8, warmup_steps=1, device=cuda_device)
+    cfg = env.cfg
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0))  # captures
+    pos = state.scene.bodies.pos.clone()
+    beside_hole = pos[:, cfg.plate_body] + torch.tensor([0.3, 0.0, 0.0], device=cuda_device)
+    pos[:, : cfg.object_body + 1] += (beside_hole - pos[:, cfg.object_body])[:, None]
+    zero = torch.zeros_like(pos)
+    still = state.scene._replace(bodies=state.scene.bodies._replace(pos=pos, lin_vel=zero, ang_vel=zero))
+    moved_pos = pos.clone()
+    moved_pos[:, cfg.plate_body] += torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
+    moved = still._replace(bodies=still.bodies._replace(pos=moved_pos))
+    with counting(*PHYSICS_GRAPH) as calls:
+        got_still, got_moved = env._physics(still).bodies, env._physics(moved).bodies
+    assert calls == physics_graph(0, 2)
+    assert bodies_equal(got_still, eager_physics(env, still).bodies)
+    assert bodies_equal(got_moved, eager_physics(env, moved).bodies)
+    obj = cfg.object_body
+    assert (got_still.pos[:, obj] - got_moved.pos[:, obj]).abs().amax(dim=-1).min().item() > 1e-4
+
+
+@pytest.mark.cuda
+def test_rigid_physics_graph_one_per_env_and_returned_states_keep_their_values(cuda_device):
+    """Two envs capture a graph each, at their first physics call, and
+    replay it on every later one; the state a reset returned keeps its
+    values while later replays overwrite the graph's static outputs."""
+    B = 16
+    action = torch.full((B, 6), 0.5, device=cuda_device)
+    with counting(*PHYSICS_GRAPH) as moved:
+        env = make_env("rigid_insertion", num_envs=B, warmup_steps=2, device=cuda_device)
+        other = make_env("rigid_insertion", num_envs=B, warmup_steps=2, device=cuda_device)
+        first = env.reset(torch.Generator(device=cuda_device).manual_seed(0))
+        kept = [t.clone() for t in first.scene.bodies]
+        other.reset(torch.Generator(device=cuda_device).manual_seed(1))
+        state = first
+        for _ in range(2):
+            state, _ = env.step(state, action)
+    torch.cuda.synchronize()
+    assert moved == physics_graph(2, 1 + 1 + 2)
+    assert bodies_equal(first.scene.bodies, kept)
+    assert not torch.equal(state.scene.bodies.pos, first.scene.bodies.pos)
 
 
 @pytest.mark.cuda

@@ -185,6 +185,21 @@ def test_a_rigid_step_records_its_substeps_and_solves():
     assert len(rec.spans) <= 150
 
 
+@pytest.mark.parametrize("task", ["rigid_insertion", "rigid_insertion_two_agents", "rigid_pushing", "rigid_sliding"])
+def test_a_rigid_env_on_the_cpu_runs_its_physics_eagerly(task):
+    """Only on the card is the physics captured into a CUDA graph: on the CPU
+    the reset's warm-up and a step run the eager chain, and neither graph
+    counter moves."""
+    graph = ("sim.physics_graph.captures", "sim.physics_graph.replays")
+    with counting(*graph) as moved, recording() as rec:
+        env = make_env(task, num_envs=2, warmup_steps=2, device="cpu")
+        state = env.reset(torch.Generator().manual_seed(0))
+        env.step(state, torch.zeros((2, env.cfg.action_dim)))
+    assert env._graph is None
+    assert moved == dict.fromkeys(graph, 0)
+    assert rec.totals()["sim.substep"][0] == 3 * env.cfg.decimation
+
+
 def test_a_cloth_iteration_records_one_bisection_per_minibatch_step():
     cfg = load_config("cloth_hanging_multi_hepi_trpl", overrides={
         "env": {"num_envs": 2, "kwargs": {"warmup_steps": 1, "episode_length": 3}},
