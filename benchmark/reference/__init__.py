@@ -20,13 +20,10 @@ from typing import Dict
 
 import torch
 
+from . import frozen
 from .frozen.config import trainer_from_config
-from .frozen.envs import cloth as ref_cloth
-from .frozen.envs import rigid as ref_rigid
+from .frozen.declared import named_tuples
 from .frozen.models.common import Dense
-from .frozen.rl import normalizer as ref_normalizer
-from .frozen.rl import obs_pipeline as ref_obs_pipeline
-from .frozen.sim import types as ref_sim_types
 
 FP8_MAX = 448.0  # the largest finite float8 e4m3 value
 
@@ -75,13 +72,9 @@ def lower_precision(trainer) -> None:
     env.step = rounded_step
 
 
-# the copy's NamedTuple types by name, for `to_reference`
-REFERENCE_TYPES = {
-    cls.__name__: cls
-    for module in (ref_cloth, ref_rigid, ref_sim_types, ref_normalizer, ref_obs_pipeline)
-    for cls in vars(module).values()
-    if isinstance(cls, type) and issubclass(cls, tuple) and hasattr(cls, "_fields")
-}
+# the copy's NamedTuple types by name, for `to_reference`: every one that a
+# module of the frozen package defines
+REFERENCE_TYPES = named_tuples(frozen.__name__)
 
 
 def copy_generator(g: torch.Generator) -> torch.Generator:

@@ -1,3 +1,4 @@
+from ..declared import declared
 from .calibration import calibrate  # noqa: F401
 from .common import MLP, gather_nodes, scatter_mean, scatter_sum  # noqa: F401
 from .critic import GraphValueNet, MLPValueNet  # noqa: F401
@@ -12,9 +13,11 @@ MODEL_REGISTRY = {
 
 
 def get_model(name: str, **kwargs):
-    """Model factory keyed like the configs' `model`."""
+    """Model factory keyed like the configs' `model`: the built-in models
+    and those a module of this package declares in `MODELS`."""
+    registry = declared(__name__, "MODELS", MODEL_REGISTRY, __file__)
     try:
-        cls = MODEL_REGISTRY[name.lower()]
+        cls = registry[name.lower()]
     except KeyError:
-        raise ValueError(f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}") from None
+        raise ValueError(f"Unknown model {name!r}; available: {sorted(registry)}") from None
     return cls(**kwargs)

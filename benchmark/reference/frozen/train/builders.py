@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from .. import graphs
+from ..declared import declared
 from ..envs import make_env
 from ..envs.cloth import ClothEnv
 from ..envs.rigid import RigidEnv
@@ -23,15 +25,24 @@ EQUIVARIANT_MODELS = ("hepi", "ponita_gcn", "empn")
 EDGE_TYPED_MODELS = ("gcn", "meshgraphnet")
 
 
+def _cloth_builder(env, dist_as_pos: bool, **builder_kw):
+    return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
+
+
+BUILT_IN_BUILDERS = {ClothEnv: _cloth_builder, RigidEnv: RigidGraphBuilder.from_env}
+
+
 def make_graph_builder(env, dist_as_pos: bool, model: str = "", **builder_kw):
-    """The task family's data layer, by model family and env type.
+    """The task family's data layer, by env type: the built-in builders and
+    those a module of `graphs/` declares in `BUILDERS` (env class ->
+    `make(env, dist_as_pos=..., **builder_kw)`), the env's own class first.
     `dist_as_pos=True` marks the policy builder; the cloth critic additionally
     keeps the particle nodes. builder_kw forwards training_noise /
     training_noise_std."""
-    if isinstance(env, ClothEnv):
-        return ClothGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, full_graph_obs=not dist_as_pos, **builder_kw)
-    if isinstance(env, RigidEnv):
-        return RigidGraphBuilder.from_env(env, dist_as_pos=dist_as_pos, **builder_kw)
+    builders = declared(graphs.__name__, "BUILDERS", BUILT_IN_BUILDERS, __file__)
+    for cls in type(env).__mro__:
+        if cls in builders:
+            return builders[cls](env, dist_as_pos=dist_as_pos, **builder_kw)
     raise TypeError(f"no graph builder for {type(env).__name__}")
 
 

@@ -3,26 +3,24 @@
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 from benchmark import manifest
 from benchmark.harness import run_cell
 
-# the cells' configurations cut to a test's size (widths too: the CPU runs them)
-TINY = {
-    "cloth_hanging_hepi_trpl": {"env": {"num_envs": 2, "kwargs": {"warmup_steps": 1, "episode_length": 3}},
-                                "collector": {"frames_per_batch": 8},
-                                "algorithm": {"latent_dim": 8, "num_ori": 4, "objective": {"mini_batch_size": 4}}},
-    "rigid_insertion_hepi_trpl": {"env": {"num_envs": 8, "kwargs": {"warmup_steps": 0, "episode_length": 8}},
-                                  "collector": {"frames_per_batch": 32},
-                                  "algorithm": {"latent_dim": 8, "num_ori": 4, "objective": {"mini_batch_size": 16}}},
-}
+# each configuration cut to a test's size (widths too: the CPU runs them), in
+# tiny/<config>.json: a new configuration brings its own file
+TINY_DIR = Path(__file__).resolve().parent / "tiny"
+TINY_CONFIGS = sorted(p.stem for p in TINY_DIR.glob("*.json"))
 SEED = 2**31 + 4321  # above 32 signed bits: a run takes seeds of any size
 
 
 def tiny_config(name: str):
     with open(manifest.HERE / "configs" / f"{name}.json") as f:
         cfg = json.load(f)
-    for group, values in TINY[name].items():
+    with open(TINY_DIR / f"{name}.json") as f:
+        tiny = json.load(f)
+    for group, values in tiny.items():
         for k, v in values.items():
             if isinstance(v, dict):
                 cfg[group][k].update(v)

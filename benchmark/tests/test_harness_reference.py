@@ -1,8 +1,8 @@
 """The frozen reference against the port at small sizes on the CPU, where
 both run plain PyTorch: the same bits through reset, env steps, the policy
 and critic forwards, a whole training iteration (collect, GAE, TRPL with its
-KL projection, backward, Adam) and the evaluation rollout, for both
-configurations. And what the benchmark's modules import."""
+KL projection, backward, Adam) and the evaluation rollout, for every
+configuration with test sizes (`tests/tiny/`). And what the benchmark's modules import."""
 
 import ast
 from pathlib import Path
@@ -10,9 +10,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import reference
+from benchmark import manifest, reference
 from benchmark.manifest import HERE
-from benchmark.tests.common import SEED, TINY, tiny_config
+from benchmark.tests.common import SEED, TINY_CONFIGS, tiny_config
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "geometry_rl_tpu"}
 
@@ -56,7 +56,12 @@ def _pair(name):
     return port, port.init(gen()), ref, ref.init(gen())
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+def test_every_configuration_of_the_benchmark_has_test_sizes():
+    """So that the bit-equality tests below take every configuration."""
+    assert {c["name"] for c in manifest.load_manifest()["configs"]} <= set(TINY_CONFIGS)
+
+
+@pytest.mark.parametrize("name", TINY_CONFIGS)
 def test_init_and_a_training_iteration_are_the_same_bits(name):
     port, ps, ref, rs = _pair(name)
     assert _equal(ps.obs, rs.obs) and _equal(ps.env_state, rs.env_state)
@@ -72,7 +77,7 @@ def test_init_and_a_training_iteration_are_the_same_bits(name):
     assert _equal(ps.env_state, rs.env_state) and _equal(ps.norm, rs.norm)
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", TINY_CONFIGS)
 def test_the_evaluation_rollout_is_the_same_bits(name):
     port, ps, ref, rs = _pair(name)
     with torch.no_grad():
@@ -80,7 +85,7 @@ def test_the_evaluation_rollout_is_the_same_bits(name):
             assert _equal(tp.obs, tr.obs) and torch.equal(tp.reward, tr.reward) and torch.equal(tp.done, tr.done)
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", TINY_CONFIGS)
 def test_the_reference_steps_from_the_ports_state(name):
     """`to_reference` carries a port state (NamedTuples, generators) over to
     the reference's types, and the step from it is the port's."""

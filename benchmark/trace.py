@@ -11,6 +11,17 @@ A kernel belongs to a range when its device interval lies inside the range's
 mirror on the device timeline (every kernel launched inside the range,
 whatever its name or launcher); an idle gap of the device is named by the
 innermost range the host was in at the gap's middle.
+
+With `spans=True` (a traced run; `harness.py`), a second profiled pass of
+the slice runs under the port's span recording as well. The spans open
+`record_function` ranges inside the outside ones, and a range's mirror
+holds only the kernels launched with it innermost, so the first pass keeps
+every number above and the second gives only what needs the spans: the
+kernels of each span (`Slice.in_span`: its own mirror and its descendants'
+mirrors, that is every kernel, memcpy and memset launched on its thread
+while it was open, each found by the correlation id it shares with the
+runtime call that launched it; a CUDA graph's kernels share their replay's),
+and the idle gaps named by the innermost of the ranges and the spans.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from .counts.segment_sum import segment_sum_bytes
 RANGES = ("env.step", "policy", "critic", "minibatch_step", "projection", "kl_bisection", "segment_sum", "cloth_solve")
 TOP = 10  # entries of each list of the breakdown
 NAME_CHARS = 160  # a device op's name is cut to this many characters in the breakdown
+CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
 
 @dataclasses.dataclass
@@ -136,21 +148,39 @@ class Slice:
     in_range: Dict[str, Tuple[int, float]]  # label -> (device kernels, device seconds) inside it
     calls: Dict[str, Calls]
     device_ops: List[List]  # [name, seconds], the most device time first
-    idle_gaps: List[List]  # [host range, seconds] of the device's idle time
+    idle_gaps: List[List]  # [host range, seconds] of the device's idle time; with spans, the second pass's
+    in_span: Dict[str, Tuple[int, float]] = dataclasses.field(default_factory=dict)  # span -> (kernels, device s)
+
+
+def _is_kernel(e) -> bool:
+    """A device op: a CUDA event that is no range's mirror and no optimizer annotation."""
+    return (e.device_type == CUDA and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer."))
+
+
+def _idle_gaps(kernels: List[Tuple[float, float, str]], host_ranges: Dict[str, List[Tuple[float, float]]]) -> List[List]:
+    """The device's idle gaps between the sorted `kernels`, summed by the
+    innermost host range at each gap's middle, the longest first."""
+    innermost = _innermost(host_ranges)
+    gaps: Dict[str, float] = defaultdict(float)
+    end = kernels[0][1] if kernels else 0.0
+    for a, b, _ in kernels[1:]:
+        if a > end:
+            gaps[innermost(0.5 * (a + end))] += (a - end) / 1e6
+        end = max(end, b)
+    return [[k, v] for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP]]
 
 
 def reduce_events(events, wall_s: float, sizes: Dict[str, int], calls: Dict[str, Calls]) -> Slice:
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     kernels: List[Tuple[float, float, str]] = []
     device_ranges, host_ranges = defaultdict(list), defaultdict(list)
     for e in events:
         start, end = e.time_range.start, e.time_range.end
-        if e.device_type == cuda:
-            if e.name in RANGES:
-                device_ranges[e.name].append((start, end))
-            elif not getattr(e, "is_user_annotation", False) and not e.name.startswith("Optimizer."):
-                kernels.append((start, end, e.name))
-        elif e.device_type == cpu and e.name in RANGES:
+        if e.device_type == CUDA and e.name in RANGES:
+            device_ranges[e.name].append((start, end))
+        elif _is_kernel(e):
+            kernels.append((start, end, e.name))
+        elif e.device_type == CPU and e.name in RANGES:
             host_ranges[e.name].append((start, end))
     kernels.sort()
     in_range = {}
@@ -162,25 +192,58 @@ def reduce_events(events, wall_s: float, sizes: Dict[str, int], calls: Dict[str,
     for a, b, name in kernels:
         by_name[name[:NAME_CHARS]] += (b - a) / 1e6
     busy = sum(b - a for a, b in _merge([(a, b) for a, b, _ in kernels])) / 1e6
-    # idle gaps between device work, named by the innermost host range at their middle
-    innermost = _innermost(host_ranges)
-    gaps: Dict[str, float] = defaultdict(float)
-    end = kernels[0][1] if kernels else 0.0
-    for a, b, _ in kernels[1:]:
-        if a > end:
-            gaps[innermost(0.5 * (a + end))] += (a - end) / 1e6
-        end = max(end, b)
     return Slice(
         wall_s=wall_s, control_steps=sizes["control_steps"], minibatch_steps=sizes["minibatch_steps"], busy_s=busy,
         kernels=len(kernels), in_range=in_range, calls=calls,
         device_ops=[[k, v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
-        idle_gaps=[[k, v] for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP]],
+        idle_gaps=_idle_gaps(kernels, host_ranges),
     )
 
 
-def traced_slice(loop) -> Slice:
+RUNTIME = "cu"  # a CUDA runtime or driver call's name starts so (cudaLaunchKernel, cudaGraphLaunch, cuLaunchKernel)
+
+
+def reduce_spans(events, span_names) -> Tuple[Dict[str, Tuple[int, float]], List[List]]:
+    """From the second pass's events: each span's (kernels, device seconds),
+    the device ops whose runtime call ran on the span's thread while it was
+    open; and the idle gaps named by the innermost of the ranges and the spans."""
+    names = set(span_names)
+    launched_at: Dict[int, Tuple[int, float]] = {}  # correlation id -> (thread, start) of the runtime call
+    opened = defaultdict(list)  # (span, thread) -> host intervals
+    host_ranges = defaultdict(list)
+    kernels = []
+    for e in events:
+        start, end = e.time_range.start, e.time_range.end
+        if e.device_type == CUDA and (e.name in names or e.name in RANGES):
+            continue  # a span's or a range's mirror
+        if _is_kernel(e):
+            kernels.append((start, end, e.name, e.id))
+        elif e.device_type == CPU:
+            if e.name.startswith(RUNTIME):
+                launched_at[e.id] = (e.thread, start)
+            if e.name in names:
+                opened[e.name, e.thread].append((start, end))
+            if e.name in names or e.name in RANGES:
+                host_ranges[e.name].append((start, end))
+    merged = {key: _merge(ivs) for key, ivs in opened.items()}
+    in_span = {name: (0, 0.0) for name in names}
+    for a, b, _, corr in kernels:
+        call = launched_at.get(corr)
+        if call is None:
+            continue
+        for (name, thread), ivs in merged.items():
+            if thread == call[0] and _inside(ivs, call[1]):
+                n, s = in_span[name]
+                in_span[name] = (n + 1, s + (b - a) / 1e6)
+    kernels.sort()
+    return in_span, _idle_gaps([k[:3] for k in kernels], host_ranges)
+
+
+def traced_slice(loop, spans: bool = False) -> Slice:
     """The loop's slice once unprofiled (a warm-up of its shapes), then
-    under the ranges and `torch.profiler`, reduced."""
+    under the ranges and `torch.profiler`, reduced; with `spans`, once more
+    under the ranges, the port's span recording and the profiler, for the
+    spans' kernels and the idle gaps by span."""
     loop.slice()
     calls = {"segment_sum": Calls(), "cloth_solve": Calls()}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -188,4 +251,13 @@ def traced_slice(loop) -> Slice:
         t0 = time.perf_counter()
         sizes = loop.slice()
         wall = time.perf_counter() - t0
-    return reduce_events(prof.events(), wall, sizes, calls)
+    sliced = reduce_events(prof.events(), wall, sizes, calls)
+    if spans:
+        from geometry_rl_torch.utils.trace import recording
+
+        shapes = {"segment_sum": Calls(), "cloth_solve": Calls()}  # the first pass's are the ones read
+        with recording() as rec, range_patches(loop.trainer, shapes), torch.profiler.profile(activities=acts) as prof:
+            loop.slice()
+        names = {s.name for s in rec.spans if s is not None}
+        sliced.in_span, sliced.idle_gaps = reduce_spans(prof.events(), names)
+    return sliced
