@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..utils.trace import spanned
 from .types import CSR, EdgeKey, EdgeSet, GraphFeatures, HeteroGraph, csr_from_index, csr_or_on_the_spot
 
 
@@ -28,6 +29,7 @@ class HomogeneousGraph(NamedTuple):
         return self.node_slices[graph.output_node_type]
 
 
+@spanned("graphs.homogenize")
 def homogenize(graph: HeteroGraph, with_csr: bool = False) -> HomogeneousGraph:
     offsets: Dict[str, int] = {}
     slices: Dict[str, Tuple[int, int]] = {}

@@ -26,6 +26,7 @@ import torch
 
 from ..envs.base import ObsSpec
 from ..parallel.mesh import RowGenerator, draw_rows
+from ..utils.trace import count
 from .homogenize import merged_csr
 from .types import EdgeSet, GraphFeatures, HeteroGraph, NodeSet, csr_from_index
 
@@ -179,7 +180,10 @@ class RigidGraphBuilder:
             i_src, i_dst = self.internal_src[env_ids], self.internal_dst[env_ids]
             i_mask, p_mask = self.internal_mask[env_ids], self.point_mask[env_ids]
             i_src_csr, i_dst_csr = i_src_csr.select(env_ids), i_dst_csr.select(env_ids)
-            merged = lambda: tuple(csr.select(env_ids) for csr in self._merged_csr)  # noqa: E731  (on demand)
+
+            def merged():  # on demand: only the merged-graph models ask
+                count("graphs.merged_csr.selects")
+                return tuple(csr.select(env_ids) for csr in self._merged_csr)
 
         pos = split_group(tobs["position_vectors"], spec, "position_vectors")
         npos = split_group(tobs["norm_position_vectors"], spec, "position_vectors")

@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.trace import spanned
 from .common import Dense, LayerNorm, gather_nodes, gelu, scatter_sum
 
 
@@ -169,6 +170,7 @@ class SeparableFiberBundleConvNext(nn.Module):
         if self.layer_scale_init is not None:
             nn.init.constant_(self.layer_scale, self.layer_scale_init)
 
+    @spanned("models.conv_next")
     def forward(self, x, src, dst, edge_mask, kernel_basis, fiber_basis, src_csr=None, dst_csr=None):
         dt = self.dtype
         x = x.to(dt)

@@ -102,8 +102,8 @@ class BaseProjection:
         def t(v):
             return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
-        if self.entropy_schedule_type is None:
-            return t(-torch.inf)
+        if self.entropy_schedule_type is None:  # filled on the device: a host scalar would be a copy and a sync
+            return torch.full((), -torch.inf, dtype=like.dtype, device=like.device)
         sched = entropy_schedule(self.entropy_schedule_type, self.total_train_steps, self.action_dim)
         e0 = t(0.0) if initial_entropy is None else initial_entropy
         return t(sched(e0, t(self.target_entropy), self.temperature, step))

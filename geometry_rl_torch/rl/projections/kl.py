@@ -96,5 +96,8 @@ def kl_diag_cov_projection(var: torch.Tensor, old_var: torch.Tensor, eps) -> tor
     """Project `var` into the KL ball of radius `eps` around `old_var`.
     var, old_var [..., K]; eps a scalar or [...]. Differentiable w.r.t. `var`
     only."""
-    eps = torch.broadcast_to(torch.as_tensor(eps, dtype=var.dtype, device=var.device), var.shape[:-1])
+    if torch.is_tensor(eps):
+        eps = torch.broadcast_to(eps.to(dtype=var.dtype, device=var.device), var.shape[:-1])
+    else:  # filled on the device: a host scalar would be a copy and a sync
+        eps = torch.full(var.shape[:-1], eps, dtype=var.dtype, device=var.device)
     return KLDiagCovProjection.apply(var, old_var, eps)

@@ -372,6 +372,34 @@ def test_rigid_collect_does_not_synchronise(cuda_device):
     assert torch.isfinite(batch.reward).all()
 
 
+@pytest.mark.cuda
+def test_rigid_empn_minibatch_step_does_not_synchronise(cuda_device):
+    """A rigid_insertion EMPN minibatch step of a shuffled minibatch at 64
+    envs (each sample's merged CSRs gathered by its env id on the card, the
+    forward, the KL projection, the backward and Adam) after a warm-up step,
+    under CUDA's sync debug mode set to error."""
+    cfg = load_config("rigid_insertion_multi_empn_trpl", overrides={
+        "env": {"num_envs": 64, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 128},
+        "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 64}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, batch, _ = trainer._collect(state)
+    data = trainer._update_data(state, batch)
+    perm = torch.randperm(128, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+    first, second = trainer._minibatch(data, perm[:64]), trainer._minibatch(data, perm[64:])
+    _, kl_beta = trainer._minibatch_step(state, first, 0, state.kl_beta)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with counting("graphs.merged_csr.selects") as moved:
+            metrics, _ = trainer._minibatch_step(state, second, 1, kl_beta)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert moved == {"graphs.merged_csr.selects": 1}
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+
+
 def tree_to(obj, device):
     """Tensors of a NamedTuple tree moved to `device`; a generator is replaced."""
     if torch.is_tensor(obj):
@@ -886,7 +914,8 @@ def test_segment_sum_runs_a_plan_it_is_given(cuda_device, groups):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("config", HEPI_CONFIGS + ["cloth_hanging_multi_empn_trpl", "rigid_pushing_multi_hepi_trpl"])
+@pytest.mark.parametrize("config", HEPI_CONFIGS + ["cloth_hanging_multi_empn_trpl", "rigid_insertion_multi_empn_trpl",
+                                    "rigid_pushing_multi_hepi_trpl"])
 def test_collect_and_update_give_the_same_bits_twice(cuda_device, config):
     """A 4-env collect plus `_update`, twice from one seed, without PyTorch's
     deterministic algorithms: every param, Adam state, metric and env state

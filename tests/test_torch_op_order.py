@@ -81,6 +81,7 @@ COMBOS = {
     "rigid_insertion_two_agents-hepi": ("rigid_insertion_two_agents", "hepi", {"warmup_steps": 0, "episode_length": 3}),
     "rope_closing-hepi": ("rope_closing", "hepi", {"num_links": 10, "rope_length": 1.25, "episode_length": 3}),
     "cloth_hanging-empn": ("cloth_hanging", "empn", {"warmup_steps": 1, "episode_length": 3}),
+    "rigid_insertion-empn": ("rigid_insertion", "empn", {"warmup_steps": 0, "episode_length": 3}),
     "rigid_insertion-transformer": ("rigid_insertion", "transformer", {"warmup_steps": 0, "episode_length": 3}),
     "rigid_insertion-gcn": ("rigid_insertion", "gcn", {"warmup_steps": 0, "episode_length": 3}),
     "rigid_insertion-meshgraphnet": ("rigid_insertion", "meshgraphnet", {"warmup_steps": 0, "episode_length": 3}),
