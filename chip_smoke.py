@@ -10,11 +10,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
      TF32 off for matmuls and convolutions.
   2. build: compile (or reuse) csrc/cloth_solve.cu and csrc/cloth_solve_env.cu
-     (both instantiate csrc/cloth_solve_common.cuh) and csrc/segment_sum.cu
-     (the graph models' fixed-order message sums) into
-     geometry_rl_torch/_build/, the three nvcc runs at once; per kernel, the
-     registers, shared memory and spill bytes ptxas reported. The main paths'
-     instantiations must not spill.
+     (both instantiate csrc/cloth_solve_common.cuh), csrc/segment_sum.cu
+     (the graph models' fixed-order message sums) and csrc/kl_bisection.cu
+     (the TRPL KL projection's bisection, one instantiation a width K = 1..16)
+     into geometry_rl_torch/_build/, the four nvcc runs at once; per kernel,
+     the registers, shared memory and spill bytes ptxas reported. The main
+     paths' instantiations must not spill.
   3. kernels vs plain version on the card, on the real ClothEnv topology:
      each kernel at B = 100 and B = 1000 with self-collision off (the main
      paths' shapes) and B = 4 with it on, max |diff| <= 2e-4; K1's port
@@ -25,12 +26,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
      over 3.35 TB/s, f32 operations over 67 TFLOP/s: the H100 SXM's published
      peaks), counting the hook contacts and self-collision hits the plain
      version made on these inputs.
+  3b. the KL bisection kernel against the plain loop on the card, at the
+     update's calls [rows, K]: rigid [1000, 6], rigid pushing [1000, 3],
+     cloth [200, 12] and rope [200, 6], seeded operands with per-row eps and
+     with the main path's broadcast eps: eta bit-equal (tolerance 0) and one
+     launch a call. Per call: device ms per launch, eager and host ms per
+     call, the plain loop's ms, one row's ms, and the bound: the larger of the
+     bytes over 3.35 TB/s and the latency floor, 60 rounds of a round's
+     dependent chain summed from each operation's latency (add, mul, IEEE
+     div, logf, log1pf, expm1f) timed on one thread's chain apart from the
+     kernel (`op_latency_ns`).
   4. the rollout at full width (cloth_hanging_multi_hepi_trpl: 100 envs,
      latent 64, 16 orientations, the config's dtype): init(seed 0), one
      10,000-frame _collect, one 100-step eval_success. Outputs finite and on
      the card; K2's port ran exactly 2 x (10 + 100 + 10 + 100) = 440 times;
      HEPi's message sums launched the segment-sum kernel, every launch on its
-     16-byte (vec16) route, and no CSR was made on the spot.
+     16-byte (vec16) route, and no CSR was made on the spot; the KL
+     bisection never launched.
   5. the rollout on a small input (4 envs, f32): 3 deterministic steps on the
      card, each also taken by the CPU (where the solve is the plain version)
      from a copy of the card's state: actions, rewards and particle positions
@@ -45,7 +57,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
      and update apart. Every training phase (6, 10, 15, 18-20, 23-25) also
      counts the segment-sum kernel's launches: more than 0 for a graph model
      (HEPi, EMPN), 0 for the Transformer, and no CSR made on the spot; on
-     phases 6, 10 and 15 every launch takes the 16-byte (vec16) route.
+     phases 6, 10 and 15 every launch takes the 16-byte (vec16) route. Each
+     counts the KL bisection's launches too: one a minibatch step in a
+     TRPL-KL run (epochs x minibatches x iterations), none otherwise.
   7. `train.play` on that run: 100 steps, success threshold 0.1, eval.json;
      some episode ended (a mean final distance above 0).
   8. one `_update` (1 epoch, 2 minibatches) on the card against the CPU, 4
@@ -230,15 +244,15 @@ PARAM_TOL = 1e-5
 # scale at k = 12 on the CPU (the covariance-only projection's gradient), so
 # two f32 programs cannot be held to each other much closer than that
 FULLCOV_TOL = 2e-4
-LIBRARIES = ("cloth_solve", "cloth_solve_env", "segment_sum")
+LIBRARIES = ("cloth_solve", "cloth_solve_env", "segment_sum", "kl_bisection")
 # the paper's headline configuration: 1000 envs x 100 steps per iteration
 RIGID_CONFIG = "rigid_insertion_multi_hepi_trpl"
 # the deformable-chain family: 200 envs x 200 steps per iteration, 40 links
 ROPE_CONFIG = "rope_closing_hepi_trpl"
 # the kernel each library launches on the main paths (the cloth solves with
-# self-collision off; both type instantiations of the segment sum)
+# self-collision off; both type instantiations of the segment sum; every width of the KL bisection)
 MAIN_PATH_KERNELS = {"cloth_solve": "cloth_solve_kernel", "cloth_solve_env": "cloth_solve_env_kernel",
-                     "segment_sum": "segment_sum_kernel"}
+                     "segment_sum": "segment_sum_kernel", "kl_bisection": "kl_bisection_kernel"}
 # the segment-sum kernel adds in the plain version's order: bit-equal
 SEGMENT_TOL = 0.0
 # the graph models, whose every forward sums messages with the segment-sum kernel
@@ -552,6 +566,184 @@ def segment_kernel_phase(card: str, calls: dict) -> dict:
     return stats
 
 
+# the KL bisection's calls in the update: (family, rows = the minibatch size, K = the projection's last axis)
+KL_CALLS = (("rigid", 1000, 6), ("rigid_pushing", 1000, 3), ("cloth", 200, 12), ("rope", 200, 6))
+# one thread's dependent chain of one operation, n long, each keeping x in the normal range: 0 __fadd_rn,
+# 1 __fmul_rn, 2 __fdiv_rn, 3 logf then an add, 4 log1pf then an add, 5 expm1f then a subtraction
+OP_CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+template <int OP>
+__global__ void op_chain(float x, float y, int n, float* out) {
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) {
+    if (OP == 0) x = __fadd_rn(x, y);
+    if (OP == 1) x = __fmul_rn(x, y);
+    if (OP == 2) x = __fdiv_rn(x, y);
+    if (OP == 3) x = __fadd_rn(logf(x), y);
+    if (OP == 4) x = __fadd_rn(log1pf(x), y);
+    if (OP == 5) x = __fsub_rn(expm1f(x), y);
+  }
+  *out = x;
+}
+extern "C" int op_chain_launch(int op, float x, float y, int n, float* out, cudaStream_t stream) {
+  switch (op) {
+    case 0: op_chain<0><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    case 1: op_chain<1><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    case 2: op_chain<2><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    case 3: op_chain<3><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    case 4: op_chain<4><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    case 5: op_chain<5><<<1, 1, 0, stream>>>(x, y, n, out); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# per chain of OP_CHAIN_SRC: its name, its start x and its y (the fixed points of 3-5: 3.146, 2.146, -0.487)
+OP_CHAINS = (("add", 1.0, 1e-7), ("mul", 1.0, 1.0000001), ("div", 1.0, 1.0000001), ("log", 3.0, 2.0),
+             ("log1p", 2.0, 1.0), ("expm1", -0.5, 0.1))
+
+
+def op_latency_ns() -> dict:
+    """ns each operation of the KL bisection's round adds to one thread's
+    dependent chain on this card, apart from that kernel: OP_CHAIN_SRC built
+    with the libraries' nvcc flags, each chain launched as one thread at n =
+    4,096 and 65,536 (the least of 3 launches, CUDA events), the slope per
+    operation; a math call's chain less the add or subtraction that closes it."""
+    import ctypes
+
+    import torch
+
+    from geometry_rl_torch import cuda_build
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
+        src, lib_path = os.path.join(tmp, "op_chain.cu"), os.path.join(tmp, "libop_chain.so")
+        with open(src, "w") as f:
+            f.write(OP_CHAIN_SRC)
+        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
+                       capture_output=True, timeout=300)
+        launch = ctypes.CDLL(lib_path).op_chain_launch
+    launch.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def chain_ms(op: int, x: float, y: float, n: int) -> float:
+        times = []
+        for _ in range(3):
+            start.record()
+            err = launch(op, x, y, n, out.data_ptr(), stream)
+            end.record()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"op_chain launch failed: CUDA error {err}")
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    per_op = {}
+    for op, (name, x, y) in enumerate(OP_CHAINS):
+        chain_ms(op, x, y, 4096)  # warm
+        per_op[name] = 1e6 * (chain_ms(op, x, y, 65536) - chain_ms(op, x, y, 4096)) / (65536 - 4096)
+    for name in ("log", "log1p", "expm1"):
+        per_op[name] -= per_op["add"]
+    return per_op
+
+
+def kl_round_ns(latency: dict, K: int) -> float:
+    """One bisection round's dependent chain (csrc/kl_bisection.cu) at these
+    per-operation latencies: the next mid (add, mul, expm1f), a term of
+    `violated` (div, add, div, div, logf, sub), the K terms' sum (one add a
+    level of the tree, ceil(log2 K) levels), the 0.5 and eps (mul, sub), the
+    compare and the select of the bounds (each taken at an add's latency).
+    log1pf of mid and the other K - 1 terms run beside it."""
+    a = latency["add"]
+    chain = (a + latency["mul"] + latency["expm1"] + 3 * latency["div"] + a + latency["log"] + a
+             + (K - 1).bit_length() * a + latency["mul"] + a)
+    return chain + 2 * a
+
+
+def kl_operands(rows: int, K: int, seed: int, eps_kind: str = "broadcast"):
+    """var, old_var [rows, K] and eps [rows] on the card, as the update's
+    projection gets them: old_var log-normal (sigma 1.5), var a log-normal
+    step from it whose size is drawn per row from 1e-3 to 1 (a quarter to a
+    half of the rows outside the ball), eps 5e-3 as a stride-0 view of one
+    bound (the main path's) or log-uniform on [1e-5, 1e-1] per row."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    old_var = torch.exp(1.5 * torch.randn(rows, K, generator=g, device="cuda"))
+    size = torch.randn(rows, 1, generator=g, device="cuda") * 10.0 ** (-3 * torch.rand(rows, 1, generator=g, device="cuda"))
+    var = old_var * torch.exp(size * torch.randn(rows, K, generator=g, device="cuda"))
+    if eps_kind == "broadcast":
+        return var, old_var, torch.broadcast_to(torch.tensor(5e-3, device="cuda"), (rows,))
+    return var, old_var, 10.0 ** (-5 + 4 * torch.rand(rows, generator=g, device="cuda"))
+
+
+def kl_call_stats(rows: int, K: int, seed: int, latency: dict) -> dict:
+    """The KL bisection kernel on one call [rows, K] of seeded operands, with
+    per-row eps and with the main path's broadcast eps: eta against the plain
+    loop's on the card (rows whose bits differ, max |diff|), one launch a call;
+    on the broadcast call, device ms per launch (`graph_ms`), eager and host ms
+    per call (`timed_ms`), the plain loop's ms and host ms per call, one row's
+    device ms, and the bound: the larger of the bytes (var and old_var read, eps
+    and eta) over 3.35 TB/s and the latency floor, 60 rounds of `kl_round_ns`."""
+    import torch
+
+    from geometry_rl_torch.rl.projections import kl
+    from geometry_rl_torch.utils.trace import counting
+
+    out = {"shape": [rows, K], "differing_rows": 0, "max_abs_err": 0.0, "launches_per_call": []}
+    for i, eps_kind in enumerate(("per_row", "broadcast")):
+        var, old_var, eps = kl_operands(rows, K, seed + i, eps_kind)
+        with counting("kernels.kl_bisection") as launched:
+            got = kl._solve_eta(var, old_var, eps)
+        want = kl._solve_eta_plain(var, old_var, eps)
+        differ = got.view(torch.int32) != want.view(torch.int32)
+        out["differing_rows"] += int(differ.sum())
+        out["max_abs_err"] = max(out["max_abs_err"], (got - want).abs().max().item())
+        out["launches_per_call"].append(launched["kernels.kl_bisection"])
+        out[f"active_rows_{eps_kind}"] = int((want > 0).sum())
+    out["ms"] = graph_ms(lambda: kl._solve_eta_cuda(var, old_var, eps))
+    out["eager_ms"], out["host_ms"] = timed_ms(lambda: kl._solve_eta_cuda(var, old_var, eps), 200)
+    out["plain_ms"], out["plain_host_ms"] = timed_ms(lambda: kl._solve_eta_plain(var, old_var, eps), 5)
+    one = (var[:1].contiguous(), old_var[:1].contiguous(), eps[:1])
+    out["one_row_ms"] = graph_ms(lambda: kl._solve_eta_cuda(*one))
+    out["bytes"] = 4 * (2 * rows * K + 1 + rows)
+    t_bytes = out["bytes"] / PEAK_BYTES_PER_S * 1e3
+    out["latency_floor_ms"] = kl._BISECT_ITERS * kl_round_ns(latency, K) * 1e-6
+    out["bound_ms"], out["bound_by"] = max((t_bytes, "bytes"), (out["latency_floor_ms"], "latency"))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def kl_bisection_phase(card: str) -> dict:
+    """Phase 3b: the KL bisection kernel at the update's calls (`KL_CALLS`),
+    `kl_call_stats` for each: bit-equal to the plain loop and one launch a
+    call, or the gate fails. Returns the stats per family, with the
+    per-operation latencies under "latency_ns"."""
+    t_phase = time.perf_counter()
+    latency = op_latency_ns()
+    print(f"[kl] one thread's dependent chain on {card}, ns an operation: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in latency.items()))
+    stats = {"latency_ns": latency}
+    for i, (family, rows, K) in enumerate(KL_CALLS):
+        s = stats[family] = kl_call_stats(rows, K, 1900 + 2 * i, latency)
+        print(f"[kl] {family} [{rows}, {K}]: rows whose eta differs from the plain loop's {s['differing_rows']} "
+              f"(max |diff| {s['max_abs_err']:.3e}; active rows {s['active_rows_per_row']} with per-row eps, "
+              f"{s['active_rows_broadcast']} with the broadcast bound); launches a call {s['launches_per_call']}; "
+              f"device {1e3 * s['ms']:.2f} us a launch (eager {1e3 * s['eager_ms']:.2f} us a call, host "
+              f"{1e3 * s['host_ms']:.2f} us); plain loop {s['plain_ms']:.4f} ms a call (host {s['plain_host_ms']:.4f}); "
+              f"one row {1e3 * s['one_row_ms']:.2f} us; bound {1e3 * s['bound_ms']:.2f} us by {s['bound_by']} "
+              f"(floor {1e3 * s['latency_floor_ms']:.2f} us, {s['bytes']} bytes), {100 * s['share_of_bound']:.1f}% "
+              f"of it; on {card}")
+        if s["differing_rows"] or s["launches_per_call"] != [1, 1]:
+            fail(f"the KL bisection kernel at [{rows}, {K}]: {s['differing_rows']} rows differ from the plain loop, "
+                 f"launches a call {s['launches_per_call']}")
+    print(f"[kl] phase took {time.perf_counter() - t_phase:.2f} s")
+    return stats
+
+
 def moved(obj, device):
     """Tensors of a NamedTuple / dict tree moved to `device`."""
     import torch
@@ -623,6 +815,14 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None, 
     torch.cuda.synchronize()
     launches = launch_counts(since)
     segment, on_the_spot = segment_counts(since)
+    # a TRPL-KL update bisects once a minibatch step; nothing else runs the projection
+    obj = cfg["algorithm"]["objective"]
+    kl_expected = (iterations * obj["ppo_epochs"] * max(1, B * T // obj["mini_batch_size"])
+                   if cfg["algo"] == "trpl" and cfg["algorithm"]["projection"]["proj_type"].lower() == "kl" else 0)
+    kl_launches = launch_counts(since, "kl_bisection")["kl_bisection"]
+    print(f"[train] {config}: kl_bisection launches {kl_launches} (expected {kl_expected})")
+    if kl_launches != kl_expected:
+        fail(f"the training path of {config} launched kl_bisection {kl_launches} times, expected {kl_expected}")
     print(f"[train] {config}: {iterations} iterations of {B} envs x {T} steps; cloth kernel launches {launches} "
           f"(expected {expected}); segment_sum launches {segment}, CSRs made on the spot {on_the_spot}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -634,12 +834,12 @@ def train_phase(card: str, config: str, overrides, expected: dict, record=None, 
     if vec16_only:
         check_vec16_route(f"the training path of {config}", since)
     launches["segment_sum"] = segment
+    launches["kl_bisection"] = kl_launches
     launches.update({f"segment_sum_{r}": n for r, n in segment_routes(since).items()})
 
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     if len(rows) != iterations:
         fail(f"metrics.jsonl has {len(rows)} rows, expected {iterations}")
-    obj = cfg["algorithm"]["objective"]
     keys = set(COMMON_KEYS) | set(ALGO_KEYS[cfg["algo"]]) | (set(PAPI_KEYS) if obj["papi_steps"] else set())
     for row in rows:
         missing = keys - set(row)
@@ -2006,6 +2206,7 @@ def main() -> int:
     with recording() as rec, counting("setup.nvcc_builds") as built, ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(load_library, LIBRARIES))  # one nvcc per source, all at once
     loads = rec.totals()
+    kl_build_s = loads.get("setup.kernel_load.kl_bisection", (0, 0.0))[1]  # alongside the other builds
     print(f"[build] " + ", ".join(f"{n}: {loads.get(f'setup.kernel_load.{n}', (0, 0.0))[1]:.2f} s loading" for n in LIBRARIES)
           + f"; nvcc ran {built['setup.nvcc_builds']} times (0: every build reused); {time.perf_counter() - t0:.2f} s in all")
     for lib in LIBRARIES:
@@ -2058,6 +2259,9 @@ def main() -> int:
             fail(f"cloth_solve_env disagrees with cloth_solve at B={B}: {k1_k2}")
     print(f"[kernel] phase took {time.perf_counter() - t_phase:.2f} s")
 
+    # ---- 3b. the KL bisection kernel vs the plain loop at the update's calls --
+    kl_stats = kl_bisection_phase(card)
+
     # ---- 4. the slice at full width ---------------------------------------
     cfg = load_config("cloth_hanging_multi_hepi_trpl")
     trainer = trainer_from_config(cfg, device="cuda")
@@ -2081,6 +2285,7 @@ def main() -> int:
     t_eval = time.perf_counter() - t0
     launches = launch_counts(since)["cloth_solve"]
     segment_launches, on_the_spot = segment_counts(since)
+    kl_rollout = launch_counts(since, "kl_bisection")["kl_bisection"]
 
     frames = trainer.cfg.steps_per_batch * B
     tensors = {f"batch.{k}": v for k, v in batch._asdict().items() if k != "tobs"}
@@ -2109,6 +2314,8 @@ def main() -> int:
         fail(f"the rollout path launched segment_sum {segment_launches} times, made {on_the_spot} CSRs on the spot")
     check_vec16_route("the rollout path", since)
     rollout_routes = segment_routes(since)
+    if kl_rollout:
+        fail(f"the rollout path launched kl_bisection {kl_rollout} times: no rollout runs the projection")
 
     # ---- 5. the slice on a small input against the CPU --------------------
     parity_phase(card, "cloth_hanging_multi_hepi_trpl", {"particles": lambda s: s.scene.particles.pos})
@@ -2272,6 +2479,19 @@ def main() -> int:
          "launches_rope_training": rope_launches["segment_sum"],
          "launches_bench": new["bench"]["bench"]["segment_sum"],
          "launches_bench_all": new["bench"]["bench_all"]["segment_sum"]}
+    ] + [
+        # no Pallas kernel: the JAX package bisects with XLA's elementwise ops in a fori_loop
+        {"name": "kl_bisection", "route": "cuda", "source": "geometry_rl_torch/csrc/kl_bisection.cu",
+         "replaces": "geometry_rl_tpu/rl/projections/kl.py:55", "launches": rigid_launches["kl_bisection"],
+         **{key: kl_stats["rigid"][key] for key in ("max_abs_err", "differing_rows", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "shape", "share_of_bound", "latency_floor_ms",
+                                                    "one_row_ms", "host_ms", "plain_host_ms")},
+         "library_ms": None,
+         **{f"{key}_{family}": kl_stats[family][key] for family in ("rigid_pushing", "cloth", "rope")
+            for key in ("differing_rows", "ms", "bound_ms", "share_of_bound", "plain_ms")},
+         "latency_ns": kl_stats["latency_ns"], "build_s": kl_build_s, "launches_rollout": kl_rollout,
+         "launches_cloth_training": cloth_launches["kl_bisection"], "launches_rigid_training": rigid_launches["kl_bisection"],
+         "launches_rope_training": rope_launches["kl_bisection"]}
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,17 +11,29 @@ The solution interpolates in precision space, 1/v* = (1/v + eta/v_old) /
 in log1p space; the backward differentiates it by the implicit function
 theorem. Gradients reach the new variance only (None for old_var and eps);
 where the solve is not finite the projection falls back to v_old with no
-gradient. The bisection is plain PyTorch: 60 rounds of small elementwise ops.
+gradient.
+
+`_solve_eta` bisects CUDA tensors in one launch of `csrc/kl_bisection.cu`
+(no fallback: the kernel or an exception) and CPU tensors in the plain
+version `_solve_eta_plain`, 60 rounds of small elementwise ops; on the card
+the two give the same bits. Each launch counts `kernels.kl_bisection`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ...utils.trace import spanned
+from ...utils.trace import count, spanned
 
 _BISECT_ITERS = 60  # 2^-60 relative bracket width, beyond f32 resolution
 _ETA_MAX = 1e12
+# the widest last axis the kernel holds in registers without a spill (csrc/kl_bisection.cu, kMaxK)
+KERNEL_MAX_K = 16
+# the C entry `kl_bisection_launch`: var, old_var, eps, eps's stride, eta, rows, K, rounds, eta_max, the stream
+KERNEL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
 def _kl_cov_diag(var_p: torch.Tensor, var_q: torch.Tensor) -> torch.Tensor:
@@ -36,8 +48,7 @@ def _interp_var(var: torch.Tensor, old_var: torch.Tensor, eta: torch.Tensor) -> 
     return (1.0 + eta) / (1.0 / var + eta / old_var)
 
 
-@spanned("rl.kl_bisection")
-def _solve_eta(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+def _solve_eta_plain(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """Bisection for eta per batch element on [0, ETA_MAX]; eta = 0 where
     the constraint already holds at eta = 0."""
 
@@ -54,6 +65,58 @@ def _solve_eta(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> t
         hi = torch.where(gt, hi, mid)
     eta = 0.5 * (lo + hi)
     return torch.where(needs_proj, eta, torch.zeros_like(eta))
+
+
+def _kernel_fn():
+    """The ctypes entry `kl_bisection_launch` of `csrc/kl_bisection.cu`, built at first use."""
+    from ...cuda_build import load_library
+
+    fn = load_library("kl_bisection").kl_bisection_launch
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = KERNEL_ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _solve_eta_cuda(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """`_solve_eta_plain`'s eta from one launch of `csrc/kl_bisection.cu` on
+    the current stream: var, old_var [..., K] and eps [...] (a stride-0 view
+    of one bound too), f32 on the card, 1 <= K <= KERNEL_MAX_K. Raises on
+    operands the kernel does not take; never reads the card from the host."""
+    if var.dtype != torch.float32 or old_var.dtype != torch.float32 or eps.dtype != torch.float32:
+        raise TypeError(f"the KL bisection kernel takes f32, got {var.dtype}, {old_var.dtype}, {eps.dtype}")
+    if var.ndim < 1 or not 1 <= var.shape[-1] <= KERNEL_MAX_K:
+        raise ValueError(f"the KL bisection kernel holds a last axis of 1 to {KERNEL_MAX_K} in registers, got "
+                         f"shape {tuple(var.shape)}")
+    if old_var.shape != var.shape or eps.shape != var.shape[:-1]:
+        raise ValueError(f"shapes {tuple(var.shape)}, {tuple(old_var.shape)}, {tuple(eps.shape)}: expected "
+                         f"var and old_var [..., K], eps [...]")
+    dev = var.device
+    if dev.type != "cuda" or old_var.device != dev or eps.device != dev:
+        raise ValueError(f"the KL bisection kernel needs CUDA tensors on one card, got {dev}, {old_var.device}, "
+                         f"{eps.device}")
+    var, old_var = var.contiguous(), old_var.contiguous()
+    eps_stride = 0 if all(s == 0 for s in eps.stride()) else 1  # one bound broadcast to every row: read in place
+    if eps_stride:
+        eps = eps.contiguous()
+    eta = torch.empty(var.shape[:-1], dtype=var.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernel_fn()(var.data_ptr(), old_var.data_ptr(), eps.data_ptr(), eps_stride, eta.data_ptr(),
+                           eta.numel(), var.shape[-1], _BISECT_ITERS, _ETA_MAX,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"KL bisection kernel launch failed: CUDA error {err}")
+    count("kernels.kl_bisection")
+    return eta
+
+
+@spanned("rl.kl_bisection")
+def _solve_eta(var: torch.Tensor, old_var: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Bisection for eta per batch element on [0, ETA_MAX]; eta = 0 where
+    the constraint already holds at eta = 0. The kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if var.device.type == "cuda":
+        return _solve_eta_cuda(var, old_var, eps)
+    return _solve_eta_plain(var, old_var, eps)
 
 
 class KLDiagCovProjection(torch.autograd.Function):

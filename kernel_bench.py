@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's kernels (the cloth solves and the segment sum) of this checkout, or of it and another in turns.
+"""Time the port's kernels (the cloth solves, the segment sum, the KL bisection) of this checkout, or of it and another in turns.
 
     python3 kernel_bench.py                  # this checkout, one run
     python3 kernel_bench.py --against DIR    # DIR, this, this, DIR: one process each
     python3 kernel_bench.py --nvcc-flags="--use_fast_math"   # built with extra nvcc flags
     python3 kernel_bench.py --rows                           # the segment sum's time against the rows of a CTA
+    python3 kernel_bench.py --kl                             # the KL bisection alone (this checkout)
 
 DIR is another checkout of the repository (for example the parent commit,
 unpacked with `git archive`); each process builds its checkout's kernels into
@@ -34,6 +35,18 @@ the plain version's and `index_add_`'s ms per call (CUDA events over 3 and
 10 calls, as chip_smoke.py's phase 15b times them), and the bound (values,
 perm and offsets read once, the output written once, over 3.35 TB/s) with
 the share of it.
+For the KL bisection (`rl/projections/kl.py` `_solve_eta_cuda`,
+`csrc/kl_bisection.cu`; skipped in a tree without it): chip_smoke.py's phase
+3b (`kl_call_stats`) on the update's calls [rows, K] of the rigid (1000 x 6;
+1000 x 3 for rigid pushing), cloth (200 x 12) and rope (200 x 6)
+configurations: rows whose eta differs from the plain loop's, device ms per
+launch (as above), eager and host ms per call, the plain loop's ms and host
+ms per call, one row's device ms, and the bound: the larger of the bytes
+(var and old_var read, eps and eta) over 3.35 TB/s and the latency floor, 60
+rounds of a round's dependent chain summed from each operation's latency on
+one thread, timed apart from the kernel (`op_latency_ns`); with the share of
+it. --kl also gives the library's load seconds (its nvcc build on a fresh
+checkout).
 --rows (this checkout only): the segment sum's vec16 route on values
 [100, E, 1024] bf16 of one shared random CSR (seed 0), device ms per launch
 against E = 0 .. 360 rows an env into 10 segments, with every env in one CTA
@@ -135,6 +148,29 @@ def segment_rows(label: str) -> list:
     return rows
 
 
+def kl_rows(label: str) -> list:
+    """Time the tree's KL bisection kernel on chip_smoke's `KL_CALLS` (none where the tree has no kernel)."""
+    from chip_smoke import KL_CALLS, kl_call_stats, op_latency_ns  # this checkout's, for both trees
+    from geometry_rl_torch.rl.projections import kl
+
+    if not hasattr(kl, "_solve_eta_cuda"):
+        return []
+    latency = op_latency_ns()
+    print(f"[bench] {label} one thread's dependent chain, ns an operation: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in latency.items()), flush=True)
+    rows = []
+    for i, (family, n, K) in enumerate(KL_CALLS):
+        s = kl_call_stats(n, K, 1900 + 2 * i, latency)
+        rows.append({"kernel": "kl_bisection", "family": family, "latency_ns": latency, **s})
+        print(f"[bench] {label} kl_bisection {family} [{n}, {K}]: rows differing from the plain loop "
+              f"{s['differing_rows']}, device {1e3 * s['ms']:.3f} us, eager {1e3 * s['eager_ms']:.3f} us per call, "
+              f"host {1e3 * s['host_ms']:.3f} us per call; plain {s['plain_ms']:.4f} ms (host {s['plain_host_ms']:.4f} "
+              f"ms) per call; one row {1e3 * s['one_row_ms']:.3f} us; latency floor "
+              f"{1e3 * s['latency_floor_ms']:.3f} us, bytes {s['bytes']}; bound {1e3 * s['bound_ms']:.3f} us by "
+              f"{s['bound_by']}, {100 * s['share_of_bound']:.1f}% of it", flush=True)
+    return rows
+
+
 def rows_sweep() -> dict:
     """The vec16 route's device ms against the rows and segments of a CTA (see --rows)."""
     import torch
@@ -212,7 +248,8 @@ def run_one(tree: str, nvcc_flags: str) -> dict:
                   f"self_collision={self_collision}: max|kernel - plain| {err:.3e}, device {device:.5f} ms, "
                   f"eager {eager:.5f} ms per call, host {host:.5f} ms per call", flush=True)
     rows += segment_rows(label)
-    libraries = [name for name, _ in KERNELS] + ["segment_sum"]
+    rows += kl_rows(label)
+    libraries = [name for name, _ in KERNELS] + ["segment_sum", "kl_bisection"]
     ptxas = {name: getattr(cuda_build, "BUILD_INFO", {}).get(name) for name in libraries}  # older trees: none
     print(f"[bench] ptxas: {ptxas}", flush=True)
     return {"tree": os.path.abspath(tree), "nvcc_flags": nvcc_flags, "card": card(), "ptxas": ptxas, "rows": rows}
@@ -224,6 +261,7 @@ def main() -> int:
     parser.add_argument("--against", default=None, help="another checkout, timed in turns with this one")
     parser.add_argument("--nvcc-flags", default="", help="flags added to the kernels' nvcc build, space-separated")
     parser.add_argument("--rows", action="store_true", help="the segment sum's time against a CTA's rows and segments")
+    parser.add_argument("--kl", action="store_true", help="the KL bisection alone, this checkout")
     opts = parser.parse_args()
     import torch
 
@@ -233,6 +271,20 @@ def main() -> int:
     if opts.rows:
         sys.path.insert(0, HERE)
         result = rows_sweep()
+        print(result["card"])
+        print(json.dumps(result))
+        return 0
+    if opts.kl:
+        sys.path.insert(0, HERE)
+        from geometry_rl_torch import cuda_build
+        from geometry_rl_torch.utils.trace import counting, recording
+
+        with recording() as rec, counting("setup.nvcc_builds") as built:
+            cuda_build.load_library("kl_bisection")
+        build_s = rec.totals()["setup.kernel_load.kl_bisection"][1]
+        print(f"[bench] kl_bisection: {build_s:.2f} s loading, nvcc ran {built['setup.nvcc_builds']} times", flush=True)
+        result = {"card": card(), "build_s": build_s, "nvcc_builds": built["setup.nvcc_builds"], "rows": kl_rows("."),
+                  "ptxas": {"kl_bisection": cuda_build.BUILD_INFO.get("kl_bisection")}}
         print(result["card"])
         print(json.dumps(result))
         return 0

@@ -5,6 +5,7 @@ also runs on a machine with only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +15,7 @@ from geometry_rl_torch.graphs.types import csr_from_index
 from geometry_rl_torch.models.common import gather_nodes, scatter_sum
 from geometry_rl_torch.models.segment import ON_THE_SPOT, ROUTES, segment_sum_cuda, segment_sum_ref
 from geometry_rl_torch.rl.obs_pipeline import obs_norm_apply
+from geometry_rl_torch.rl.projections import kl
 from geometry_rl_torch.sim.cloth_solve import (
     cloth_position_solve_cuda,
     cloth_position_solve_env_cuda,
@@ -99,6 +101,11 @@ def test_main_path_kernels_do_not_spill(cuda_device):
         load_library(lib)
         info = BUILD_INFO[lib][kernel]
         assert info["registers"] > 0 and info["spill_store_bytes"] == 0 and info["spill_load_bytes"] == 0, info
+    load_library("kl_bisection")  # every width K the C entry takes is its own instantiation
+    widths = {k: v for k, v in BUILD_INFO["kl_bisection"].items() if "kl_bisection_kernel" in k}
+    assert len(widths) == kl.KERNEL_MAX_K, sorted(widths)
+    for kernel, info in widths.items():
+        assert info["registers"] > 0 and info["spill_store_bytes"] == 0 and info["spill_load_bytes"] == 0, (kernel, info)
 
 
 @pytest.mark.cuda
@@ -376,8 +383,8 @@ def test_rigid_collect_does_not_synchronise(cuda_device):
 def test_rigid_empn_minibatch_step_does_not_synchronise(cuda_device):
     """A rigid_insertion EMPN minibatch step of a shuffled minibatch at 64
     envs (each sample's merged CSRs gathered by its env id on the card, the
-    forward, the KL projection, the backward and Adam) after a warm-up step,
-    under CUDA's sync debug mode set to error."""
+    forward, the KL projection with its one bisection launch, the backward and
+    Adam) after a warm-up step, under CUDA's sync debug mode set to error."""
     cfg = load_config("rigid_insertion_multi_empn_trpl", overrides={
         "env": {"num_envs": 64, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 128},
         "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 64}},
@@ -392,11 +399,11 @@ def test_rigid_empn_minibatch_step_does_not_synchronise(cuda_device):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        with counting("graphs.merged_csr.selects") as moved:
+        with counting("graphs.merged_csr.selects", "kernels.kl_bisection") as moved:
             metrics, _ = trainer._minibatch_step(state, second, 1, kl_beta)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert moved == {"graphs.merged_csr.selects": 1}
+    assert moved == {"graphs.merged_csr.selects": 1, "kernels.kl_bisection": 1}
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
 
 
@@ -978,3 +985,151 @@ def test_xpbd_spec_without_sum_order_raises_on_card(cuda_device):
         xpbd._solve_attachments(x, inv_mass, pos, quat, spec, att)
     xpbd._solve_fixed_joints(pos, quat, spec, xpbd.joint_sum_order(joints, NB))
     xpbd._solve_attachments(x, inv_mass, pos, quat, spec, xpbd.attachment_sum_order(att, NP, NB))
+
+
+# ------------------------------------------------------------ the KL bisection
+
+# the last axes the shared configurations give the projection (rigid pushing 3; rigid insertion, sliding
+# and rope 6; cloth 12): each within the kernel's registers
+SHARED_K = (3, 6, 12)
+
+
+def torch_order_sum(x: np.ndarray) -> np.ndarray:
+    """x [rows, K] f32 summed over K in the kernel's order
+    (csrc/kl_bisection.cu, `torch_order_sum`), each add rounded to f32."""
+    K = x.shape[-1]
+    W = 1 << (K.bit_length() - 1)
+    s = [x[:, t] + x[:, t + W] if t + W < K else x[:, t] for t in range(W)]
+    offset = W // 2
+    while offset:
+        for t in range(offset):
+            s[t] = s[t] + s[t + offset]
+        offset //= 2
+    return s[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", list(range(1, kl.KERNEL_MAX_K + 1)))
+def test_torch_sums_a_short_last_axis_in_the_kernels_order(cuda_device, K):
+    """PyTorch's CUDA sum over a contiguous last axis of width K, on terms of
+    mixed sign and magnitude where the order moves the sum: the kernel's order,
+    bit for bit, at the rows of a minibatch and of one row."""
+    rng = np.random.default_rng(K)
+    x = (rng.normal(size=(4096, K)) * 10.0 ** rng.uniform(-6, 6, size=(4096, K))).astype(np.float32)
+    want = torch_order_sum(x)
+    for rows in (4096, 1000, 1):
+        got = torch.as_tensor(x[:rows], device=cuda_device).sum(-1).cpu().numpy()
+        assert np.array_equal(got, want[:rows]), (rows, int((got != want[:rows]).sum()))
+    if K >= 3:  # the inputs tell orders apart: a sum from left to right differs
+        assert not np.array_equal(want, np.cumsum(x, axis=-1, dtype=np.float32)[:, -1])
+
+
+def kl_operands(K, rows, seed, eps_kind, device):
+    """var, old_var [rows, K] and eps [rows] on the card: about half the rows
+    need a projection (var a log-normal step from old_var, scales 1e-4 to 1;
+    eps log-uniform on [1e-5, 1e-1], or 2.5e-3 as a stride-0 view), and of
+    the last 64 rows: var equal to old_var, eps 0 or negative, NaN, inf and 0
+    in var, old_var or eps; with per-row eps, 48 rows more right at their
+    bound (eps the plain version's KL at eta = 0, and one f32 step below and
+    above it)."""
+    rng = np.random.default_rng(seed)
+    old_var = np.exp(rng.normal(scale=1.5, size=(rows, K))).astype(np.float32)
+    step = rng.normal(size=(rows, 1)) * 10.0 ** rng.uniform(-3, 0, size=(rows, 1))
+    var = (old_var * np.exp(step * rng.normal(size=(rows, K)))).astype(np.float32)
+    eps = (10.0 ** rng.uniform(-5, -1, size=rows)).astype(np.float32)
+    s = rows - 64  # the special rows
+    var[s:s + 8] = old_var[s:s + 8]
+    eps[s + 4:s + 8] = 0.0
+    eps[s + 8:s + 16] = -1.0
+    k = rng.integers(0, K, size=8)
+    for i, (a, value) in enumerate([(var, np.nan), (old_var, np.nan), (var, np.inf), (old_var, np.inf),
+                                    (var, 0.0), (old_var, 0.0), (var, -1.0), (old_var, np.float32(1e-30))]):
+        a[s + 16 + 4 * i:s + 20 + 4 * i, k[i]] = value
+    eps[s + 48:s + 52] = np.nan
+    eps[s + 52:s + 56] = np.inf
+    var[s + 56:s + 64] = old_var[s + 56:s + 64] * np.float32(1.0001)
+    var, old_var = torch.as_tensor(var, device=device), torch.as_tensor(old_var, device=device)
+    if eps_kind == "broadcast":
+        return var, old_var, torch.broadcast_to(torch.tensor(2.5e-3, device=device), (rows,))
+    eps = torch.as_tensor(eps, device=device)
+    at_bound = kl._kl_cov_diag(kl._interp_var(var, old_var, torch.zeros(rows, device=device)), old_var)
+    b = s - 48
+    eps[b:b + 16] = at_bound[b:b + 16]
+    eps[b + 16:b + 32] = torch.nextafter(at_bound[b + 16:b + 32], torch.tensor(-np.inf, device=device))
+    eps[b + 32:b + 48] = torch.nextafter(at_bound[b + 32:b + 48], torch.tensor(np.inf, device=device))
+    return var, old_var, eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps_kind", ["broadcast", "per_row"])
+@pytest.mark.parametrize("K", list(range(1, kl.KERNEL_MAX_K + 1)))
+def test_kl_bisection_kernel_gives_the_plain_loops_bits(cuda_device, K, eps_kind):
+    """Every K the kernel takes (the shared configurations' 3, 6 and 12
+    among them), 4,096 rows a case (131,072 in all): one launch, and eta
+    equal to the plain loop's on the card bit for bit, active rows, rows
+    inside the ball, right at the bound, var equal to old_var, and NaN and inf
+    rows (eta 0) alike."""
+    rows = 4096
+    var, old_var, eps = kl_operands(K, rows, 1000 + K, eps_kind, cuda_device)
+    with counting("kernels.kl_bisection") as launched:
+        got = kl._solve_eta(var, old_var, eps)
+    want = kl._solve_eta_plain(var, old_var, eps)
+    assert launched == {"kernels.kl_bisection": 1}
+    active = int((want > 0).sum())
+    assert 0.15 * rows < active < 0.9 * rows  # both kinds of row
+    differ = got != want
+    assert not differ.any(), (int(differ.sum()), got[differ][:8].tolist(), want[differ][:8].tolist())
+
+
+@pytest.mark.cuda
+def test_kl_bisection_kernel_run_to_run_and_in_a_graph(cuda_device):
+    """Two launches, and a launch replayed from a CUDA graph, give the same
+    bits; at the rigid update's [1000, 6] and at [4096, 12]."""
+    for rows, K in ((1000, 6), (4096, 12)):
+        var, old_var, eps = kl_operands(K, rows, K, "per_row", cuda_device)
+        first, second = kl._solve_eta(var, old_var, eps), kl._solve_eta(var, old_var, eps)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = kl._solve_eta(var, old_var, eps)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(first, replayed)
+
+
+@pytest.mark.cuda
+def test_kl_bisection_rejects_what_the_kernel_does_not_take(cuda_device):
+    """No fallback on the card: f64, bf16 and a last axis beyond the
+    registers' limit raise, and nothing launches."""
+    var, old_var, eps = kl_operands(6, 128, 0, "per_row", cuda_device)
+    wide = torch.ones(128, kl.KERNEL_MAX_K + 1, device=cuda_device)
+    for args, err in (((var.double(), old_var.double(), eps.double()), TypeError),
+                      ((var.bfloat16(), old_var.bfloat16(), eps.bfloat16()), TypeError),
+                      ((wide, wide, eps), ValueError)):
+        with counting("kernels.kl_bisection") as launched, pytest.raises(err):
+            kl._solve_eta(*args)
+        assert launched == {"kernels.kl_bisection": 0}
+
+
+@pytest.mark.cuda
+def test_rigid_hepi_minibatch_step_launches_the_bisection_once(cuda_device):
+    """A rigid_insertion HEPi minibatch step at 64 envs after a warm-up step:
+    one bisection launch, none of the plain loop's, and no synchronize."""
+    cfg = load_config("rigid_insertion_multi_hepi_trpl", overrides={
+        "env": {"num_envs": 64, "kwargs": {"warmup_steps": 0}}, "collector": {"frames_per_batch": 128},
+        "algorithm": {"latent_dim": 16, "num_ori": 4, "objective": {"mini_batch_size": 64}},
+    })
+    trainer = trainer_from_config(cfg, device=cuda_device)
+    state = trainer.init(torch.Generator(device=cuda_device).manual_seed(0))
+    state, batch, _ = trainer._collect(state)
+    data = trainer._update_data(state, batch)
+    perm = torch.randperm(128, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+    _, kl_beta = trainer._minibatch_step(state, trainer._minibatch(data, perm[:64]), 0, state.kl_beta)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with counting("kernels.kl_bisection") as launched:
+            metrics, _ = trainer._minibatch_step(state, trainer._minibatch(data, perm[64:]), 1, kl_beta)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launched == {"kernels.kl_bisection": 1}
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
